@@ -1,0 +1,300 @@
+"""On-card smoke test of the PyTorch + CUDA port (versatilefilmgrain_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA GPU:
+
+    python3 chip_smoke.py
+
+Phases, one result line each:
+  1. device   -- the card's name and power limit;
+  2. build    -- nvcc builds csrc/grain_natural.cu; ptxas' register, shared
+                 memory and spill report;
+  3. kernel   -- the kernel against its plain torch version on the card at
+                 3840x2160 10-bit 4:2:0, default config, one batch of 8
+                 frames; exact equality on all planes; both timed with CUDA
+                 events;
+  4. geometry -- the same comparison at small sizes for other configs,
+                 depths, chroma formats, a pad-leak and an unaligned width;
+  5. golden   -- the 48 golden CLI cases through the port's CLI on the card,
+                 every sha256 checked, kernel launches counted;
+  6. cli 4K   -- the port's CLI on an 8-frame 3840x2160 10-bit 4:2:0 file with
+                 --batch 8 (the main path; launches counted), output size and
+                 first frame checked against the plain version.
+Then one JSON line describing the kernel, and as the last line
+{"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
+and prints no result.  It needs a CUDA device and the rest of the repository.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+SCRATCH = os.path.join(REPO, "build", "chip_smoke")
+CFG_DIR = os.path.join(REPO, "tests", "golden", "cfg")
+DEVICE = "cuda"
+FULL = (3840, 2160, 8)   # the main path's width, height and batch
+
+
+def check(cond, msg):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def phase(name, text):
+    print(f"[{name}] {text}", flush=True)
+
+
+def cuda_ms(fn, iters, warmup=2):
+    """Mean device time of fn() in ms over ``iters`` calls, after warm-up."""
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def random_batch(pipe, frames, seed, dev):
+    """Seeded random padded planes for ``frames`` of ``pipe``'s geometry."""
+    regs = pipe.regs
+    R, C = -(-pipe.height // 16), -(-pipe.width // 16)
+    bhc, bwc = 16 // regs.csuby, 16 // regs.csubx
+    dt = np.uint8 if pipe.depth == 8 else np.uint16
+    rng = np.random.default_rng(seed)
+    hi = (1 << pipe.depth) - 1
+    return [torch.from_numpy(rng.integers(0, hi + 1, (frames, h, w)).astype(dt))
+            .to(dev) for h, w in ((R * 16, C * 16), (R * bhc, C * bwc),
+                                  (R * bhc, C * bwc))]
+
+
+def kernel_vs_plain(pipe, frame_ids, seed, dev):
+    """Run the kernel and the plain version on the same inputs; returns
+    (max_abs_err, planes, bases, tables)."""
+    from versatilefilmgrain_tpu_torch.ops.grain_natural import (
+        add_grain_batch_natural, add_grain_batch_plain, natural_tables)
+    regs = pipe.regs
+    tables = natural_tables(regs, dev)
+    planes = random_batch(pipe, len(frame_ids), seed, dev)
+    bases = [pipe.frame_bases(f)[0] for f in frame_ids]
+    geo = dict(bs=regs.bs, csubx=regs.csubx, csuby=regs.csuby)
+    k = add_grain_batch_natural(*planes, bases, None, tables,
+                                height=pipe.height, width=pipe.width, **geo)
+    p = add_grain_batch_plain(*planes, bases, tables, **geo)
+    torch.cuda.synchronize()
+    err = max(int((a.int() - b.int()).abs().max()) for a, b in zip(k, p))
+    for c, (a, b) in enumerate(zip(k, p)):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"plane {c}: {a.dtype}{tuple(a.shape)} vs "
+              f"{b.dtype}{tuple(b.shape)}")
+    return err, planes, bases, tables
+
+
+def luma_only_sei():
+    """Luma-only FGC SEI (the 4:2:2/4:4:4 format goldens' config)."""
+    from versatilefilmgrain_tpu_torch.models import config as cfgmod
+    sei = cfgmod.FgsSei()
+    sei.model_id = 0
+    sei.log2_scale_factor = 5
+    sei.comp_model_present_flag = [1, 0, 0]
+    sei.num_intensity_intervals = [4, 0, 0]
+    sei.num_model_values = [3, 0, 0]
+    sei.intensity_interval_lower_bound[0, :4] = [0, 60, 120, 180]
+    sei.intensity_interval_upper_bound[0, :4] = [59, 119, 179, 255]
+    sei.comp_model_value[0, :4, :3] = [[90, 4, 6], [120, 8, 8],
+                                       [140, 11, 9], [160, 14, 14]]
+    return sei
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False); the port's kernels run only on the card",
+              file=sys.stderr)
+        return 2
+
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from gen_input import make_input_yuv
+    from torch_port_cases import golden_cli_args
+    from versatilefilmgrain_tpu_torch import GrainPipeline, cli
+    from versatilefilmgrain_tpu_torch.ops import _kernels, grain_natural
+    from versatilefilmgrain_tpu_torch.ops.grain_ref import plane_grain
+    from versatilefilmgrain_tpu_torch.utils import yuv
+
+    dev = torch.device(DEVICE)
+    counter = grain_natural.grain_plane_cuda
+
+    # 1. device
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    card = smi.splitlines()[0]
+    phase("device", f"{kind}; torch {torch.__version__} CUDA "
+          f"{torch.version.cuda}; devices {torch.cuda.device_count()}")
+    print(smi, flush=True)
+
+    # 2. build
+    t0 = time.perf_counter()
+    _kernels.load("grain_natural")
+    log = _kernels.build_logs.get("grain_natural", "(library was up to date)")
+    phase("build", f"grain_natural.cu built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for line in log.strip().splitlines():
+        if "ptxas" in line or "spill" in line:
+            print("   " + line.strip(), flush=True)
+
+    # 3. kernel vs plain at the main path's shape
+    W, H, F = FULL
+    pipe = GrainPipeline(W, H, 10, yuv.YUV_420, device=dev)
+    frame_ids = [0, 1, 2, 3, 4, 5, 6, 97]
+    err4k, planes, bases, tables = kernel_vs_plain(pipe, frame_ids, 5, dev)
+    check(err4k == 0,
+          f"4K kernel differs from plain version (max |err| {err4k})")
+    regs = pipe.regs
+    geo = dict(bs=regs.bs, csubx=regs.csubx, csuby=regs.csuby)
+    lat = grain_natural._lattice(bases, planes[0])
+    lat32 = grain_natural._as_int32_words(lat)
+    lat_up = torch.cat([lat[:, :1], lat[:, :-1]], dim=1)
+    sc = tables["scalars"]
+
+    def run_kernel():
+        for c, p in enumerate(planes):
+            grain_natural.grain_plane_cuda(p, lat32, tables, c=c, **geo)
+
+    def run_plain():
+        for c, p in enumerate(planes):
+            lo, hi = (sc[1], sc[2]) if c == 0 else (sc[3], sc[4])
+            plane_grain(p, lat, lat_up, tables["pattern"][1 if c else 0],
+                        tables["slut"][c], tables["plut"][c], sc[0], lo, hi,
+                        c=c, **geo)
+
+    ms_k = cuda_ms(run_kernel, 20)
+    ms_p = cuda_ms(run_plain, 5, warmup=1)
+    ms_k2 = cuda_ms(run_kernel, 20)
+    ms_p2 = cuda_ms(run_plain, 5, warmup=1)
+    ms_lat = cuda_ms(lambda: grain_natural._lattice(bases, planes[0]), 20)
+    nbytes = 2 * sum(p.numel() * p.element_size() for p in planes)
+    phase("kernel", f"{W}x{H} 10-bit 4:2:0 default config, batch {F}, "
+          f"frames {frame_ids}: kernel == plain on Y, U, V "
+          f"(max |err| {err4k})")
+    phase("kernel", f"time per batch step (3 plane launches, CUDA events, "
+          f"warmed up; runs kernel, plain, kernel, plain): kernel "
+          f"{ms_k:.4f} / {ms_k2:.4f} ms, plain {ms_p:.3f} / {ms_p2:.3f} ms, "
+          f"lattice prep {ms_lat:.4f} ms; {nbytes / 1e6:.1f} MB moved = "
+          f"{nbytes / (min(ms_k, ms_k2) * 1e-3) / 1e12:.3f} TB/s; "
+          f"card {card}")
+    kernel_ms, plain_ms = min(ms_k, ms_k2), min(ms_p, ms_p2)
+    del planes, lat, lat32, lat_up
+
+    # 4. other geometries (kernel vs plain, frames 0, 1, 3)
+    cases = [
+        ("sei_ar_test1 10b 420", 256, 192, 10, yuv.YUV_420,
+         dict(configs=[os.path.join(CFG_DIR, "fgs_sei_ar_test1.cfg")])),
+        ("afgs1_test1 10b 420", 256, 192, 10, yuv.YUV_420,
+         dict(configs=[os.path.join(CFG_DIR, "fgs_afgs1_test1.cfg")])),
+        ("default 8b 420", 256, 192, 8, yuv.YUV_420, {}),
+        ("luma-only 10b 422", 256, 192, 10, yuv.YUV_422,
+         dict(initial_sei=luma_only_sei())),
+        ("luma-only 8b 444", 256, 192, 8, yuv.YUV_444,
+         dict(initial_sei=luma_only_sei())),
+        ("default 10b 420 pad-leak 257x192", 257, 192, 10, yuv.YUV_420, {}),
+        ("default 8b 420 pad-leak 145x128", 145, 128, 8, yuv.YUV_420, {}),
+        ("default 10b 420 unaligned 250x140", 250, 140, 10, yuv.YUV_420, {}),
+    ]
+    for i, (name, w, h, depth, fmt, kw) in enumerate(cases):
+        p = GrainPipeline(w, h, depth, fmt, device=dev, **kw)
+        p.maybe_switch_config(0)
+        err, *_ = kernel_vs_plain(p, [0, 1, 3], 100 + i, dev)
+        check(err == 0, f"{name}: kernel differs from plain (max |err| {err})")
+        phase("geometry", f"{name}: kernel == plain (max |err| 0)")
+
+    # 5. golden CLI cases through the port's CLI on the card
+    golden = json.load(open(os.path.join(REPO, "tests", "golden",
+                                         "checksums.json")))
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.makedirs(SCRATCH)
+    counter.launches = 0
+    t0 = time.perf_counter()
+    for name in sorted(golden):
+        entry = golden[name]
+        case = entry["case"]
+        inp = os.path.join(SCRATCH, "in_%dx%d_%db_%d_%df.yuv" % (
+            case["w"], case["h"], case["depth"], case["fmt"],
+            case["in_frames"]))
+        if not os.path.exists(inp):
+            make_input_yuv(inp, case["w"], case["h"], case["depth"],
+                           case["fmt"], case["in_frames"])
+        out = os.path.join(SCRATCH, "out.yuv")
+        rc = cli.main(["vfgs-torch", "--engine", "auto"]
+                      + golden_cli_args(case, inp, out))
+        check(rc == 0, f"golden {name}: CLI exit {rc}")
+        data = open(out, "rb").read()
+        check(len(data) == entry["bytes"]
+              and hashlib.sha256(data).hexdigest() == entry["sha256"],
+              f"golden {name}: output differs from the reference")
+    golden_launches = counter.launches
+    check(golden_launches > 0, "golden cases never launched the kernel")
+    phase("golden", f"{len(golden)}/{len(golden)} sha256 match through "
+          f"the port's CLI (--engine auto); {golden_launches} kernel launches;"
+          f" {time.perf_counter() - t0:.1f} s")
+
+    # 6. the main path: the CLI on an 8-frame 4K 10-bit 4:2:0 file
+    inp = os.path.join(SCRATCH, "in_4k.yuv")
+    out = os.path.join(SCRATCH, "out_4k.yuv")
+    make_input_yuv(inp, W, H, 10, yuv.YUV_420, F, seed=77)
+    counter.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["vfgs-torch", "-w", str(W), "-h", str(H), "-b", "10",
+                   "-f", "420", "-n", str(F), "--batch", str(F), "-v",
+                   inp, out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    check(rc == 0, f"4K CLI run exit {rc}")
+    check(launches > 0, "4K CLI run never launched the kernel")
+    fbytes = yuv.frame_bytes(W, H, 10, yuv.YUV_420)
+    check(os.path.getsize(out) == F * fbytes,
+          f"4K output is {os.path.getsize(out)} bytes, not {F * fbytes}")
+    ref = GrainPipeline(W, H, 10, yuv.YUV_420, device=dev, engine="ref")
+    with open(inp, "rb") as fsrc:
+        first_in = yuv.read_frame(fsrc, W, H, 10, yuv.YUV_420)
+    expect = ref.process_frame(first_in, 0)
+    with open(out, "rb") as fdst:
+        first_out = yuv.read_frame(fdst, W, H, 10, yuv.YUV_420)
+    for c, (a, b) in enumerate(zip(expect, first_out)):
+        check(np.array_equal(a, b), f"4K CLI frame 0 plane {c} differs "
+              f"from the plain version")
+    phase("cli 4K", f"{F} frames {W}x{H} 10-bit 4:2:0 --batch {F}: "
+          f"{launches} kernel launches, {F * fbytes} bytes out, frame 0 == "
+          f"plain version; wall {wall:.3f} s with file I/O (card {card})")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+
+    print(json.dumps({"kernels": [{
+        "name": "grain_natural", "route": "cuda",
+        "source": "versatilefilmgrain_tpu_torch/csrc/grain_natural.cu",
+        "replaces": "versatilefilmgrain_tpu/ops/grain_natural.py:584",
+        "launches": launches, "max_abs_err": err4k,
+        "ms": kernel_ms, "plain_ms": plain_ms}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,115 @@
+"""Shared inputs for the torch port's tests (tests/test_torch_*.py).
+
+Each helper takes a package (the JAX reference ``versatilefilmgrain_tpu`` or
+the port ``versatilefilmgrain_tpu_torch``) and builds the same config through
+that package's own modules, so both sides of a comparison run their own host
+code on identical inputs.
+"""
+
+import importlib
+import os
+
+import numpy as np
+
+JAX_PKG = "versatilefilmgrain_tpu"
+TORCH_PKG = "versatilefilmgrain_tpu_torch"
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CFG_DIR = os.path.join(REPO, "tests", "golden", "cfg")
+CFG_FILES = sorted(f for f in os.listdir(CFG_DIR)
+                   if f.endswith((".cfg", ".tbl", ".txt")))
+
+# The engine grid of tests/test_fast_engine.py and test_natural_engine.py.
+KINDS = ["sei_ff", "sei_ar", "afgs1"]
+DEPTH_CSUB = [(10, (2, 2)), (8, (2, 2)), (10, (2, 1)), (8, (1, 1))]
+
+
+def mod(pkg: str, name: str):
+    return importlib.import_module(f"{pkg}.{name}")
+
+
+def afgs1_cfg(pkg):
+    """The AFGS1 config of tests/test_fast_engine.py (luma + both chroma)."""
+    a = mod(pkg, "models.config").default_afgs1()
+    a.grain_seed = 4321
+    a.num_y_points = 3
+    a.point_y_values[:3] = [0, 128, 255]
+    a.point_y_scaling[:3] = [40, 90, 20]
+    a.num_cb_points = 2
+    a.point_cb_values[:2] = [0, 255]
+    a.point_cb_scaling[:2] = [60, 60]
+    a.num_cr_points = 2
+    a.point_cr_values[:2] = [0, 255]
+    a.point_cr_scaling[:2] = [30, 80]
+    a.grain_scaling = 9
+    a.ar_coeff_lag = 2
+    a.ar_coeffs_y[:12] = [4, -3, 2, 1, -2, 8, 40, 10, -5, 2, 1, 0]
+    a.ar_coeffs_cb[:12] = [2, 0, 1, 0, -1, 3, 30, 5, -2, 1, 0, 0]
+    a.ar_coeffs_cr[:12] = [1, 1, 0, 0, -1, 2, 25, 4, -1, 0, 0, 0]
+    a.ar_coeff_shift = 7
+    a.grain_scale_shift = 1
+    a.clip_to_restricted_range = 1
+    return a
+
+
+def golden_cli_args(case, inp, out):
+    """``tools/gen_golden.cli_args`` with every path into tests/golden/ based
+    on this checkout.  checksums.json records its cfg_extra cases by the
+    absolute path of the checkout that generated it; "POC:path" keeps its
+    POC."""
+    from gen_golden import cli_args
+
+    def rebase(arg):
+        head, sep, tail = arg.partition("/tests/golden/")
+        if not sep:
+            return arg
+        poc, colon, _ = head.partition(":")
+        keep = poc + colon if colon and poc.isdigit() else ""
+        return keep + os.path.join(REPO, "tests", "golden", tail)
+    return [rebase(a) for a in cli_args(case, inp, out)]
+
+
+def regs_for(pkg, kind, depth, csub):
+    """Register file after FW init for one grid case (cf. test_fast_engine)."""
+    cfgmod, fw = mod(pkg, "models.config"), mod(pkg, "models.fw")
+    regs = mod(pkg, "models.hw").HwRegs()
+    regs.set_depth(depth)
+    regs.set_chroma_subsampling(*csub)
+    if kind == "sei_ff":
+        fw.init_sei(cfgmod.default_sei(), regs)
+    elif kind == "sei_ar":
+        sei = cfgmod.default_sei()
+        sei.model_id = 1
+        sei.comp_model_present_flag = [1, 0, 0]
+        sei.log2_scale_factor = 6
+        sei.comp_model_value[0, :8, :6] = np.array(
+            [[100, 11, 0, -8, 32, -7]] * 8, np.int16)
+        fw.init_sei(sei, regs)
+    else:
+        fw.init_afgs1(afgs1_cfg(pkg), regs)
+    return regs
+
+
+def frame_bases(pkg, seed_state, R, C, frames):
+    """(bases, bases_up) of ``frames`` through the package's lfsr module."""
+    lfsr = mod(pkg, "ops.lfsr")
+    bases, bases_up = [], []
+    for f in frames:
+        e0 = lfsr.frame_base_exponent(f, R, C)
+        bases.append(int(lfsr.advance(np.uint32(seed_state), e0)))
+        bases_up.append(int(lfsr.advance(np.uint32(seed_state), e0 - C))
+                        if e0 else bases[-1])
+    return bases, bases_up
+
+
+def random_planes(seed, depth, R, C, csub, frames=None):
+    """Seeded random padded (Y, U, V) numpy planes, optionally batched."""
+    csubx, csuby = csub
+    rng = np.random.default_rng(seed)
+    dt = np.uint8 if depth == 8 else np.uint16
+    lead = () if frames is None else (frames,)
+    hi = (1 << depth) - 1
+    return tuple(rng.integers(0, hi + 1, lead + shape).astype(dt)
+                 for shape in ((R * 16, C * 16),
+                               (R * (16 // csuby), C * (16 // csubx)),
+                               (R * (16 // csuby), C * (16 // csubx))))

@@ -1,0 +1,80 @@
+"""Build and bind the package's hand-written CUDA kernels (csrc/*.cu).
+
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+with a plain C interface under ``build/kernels/`` at first use, and loaded
+with ``ctypes``.  Nothing here runs at import: the package imports on
+machines without a card or a CUDA toolkit, and only a launch on a CUDA tensor
+builds.  A failed build raises; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lock = threading.Lock()
+_libs: dict = {}
+build_logs: dict = {}   # source name -> nvcc's output (ptxas registers/smem)
+
+
+def _nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if os.path.exists("/usr/local/cuda/bin/nvcc"):
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build the CUDA kernels")
+
+
+def _build(name: str) -> str:
+    """Compile csrc/<name>.cu to build/kernels/lib<name>.so if it is missing
+    or older than its source; returns the library's path."""
+    src = os.path.join(_PKG, "csrc", f"{name}.cu")
+    so = os.path.join(_BUILD_DIR, f"lib{name}.so")
+    if os.path.exists(so) and os.path.getmtime(so) > os.path.getmtime(src):
+        return so
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.tmp{os.getpid()}"
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                          capture_output=True, text=True)
+    build_logs[name] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed to build {src} "
+                           f"(exit {proc.returncode}):\n{build_logs[name]}")
+    os.replace(tmp, so)
+    return so
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(_build(name))
+            _bind(name, lib)
+            _libs[name] = lib
+        return lib
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    if name == "grain_natural":
+        lib.vfg_grain_plane.restype = i
+        lib.vfg_grain_plane.argtypes = [
+            vp, vp, i,              # in, out, elem_bytes
+            vp, vp, vp, vp, vp,     # lat, pattern, slut, plut, scalars
+            i, i, i,                # frames, rows, cols
+            i, i, i, i, i,          # c, csubx, csuby, bs, zero_scale
+            vp]                     # stream

@@ -1,0 +1,606 @@
+"""Outer layer: validation, chroma-format adjustment, gain, POC-scheduled
+multi-config switching, and the frame loop (reference: src/vfgs_main.c).
+
+The per-frame LFSR bases are derived in closed form from (frame - epoch) where
+``epoch`` is the frame index of the last reseed (AFGS1 inits reseed,
+vfgs_fw.c:672; SEI inits do not, so grain state carries across SEI config
+switches exactly like the C statics, vfgs_main.c:771-781).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+import torch
+
+from .models import config as cfgmod
+from .models import fw
+from .models.hw import HwRegs
+from .ops import lfsr
+from .ops.grain_natural import (add_grain_batch_natural,
+                                add_grain_batch_plain, natural_tables)
+from .utils import parsers, yuv
+from .utils.parsers import ConfigError, _check
+
+MAX_CONFIGS = 64
+
+
+class FatalConfigError(ConfigError):
+    """Init-time register errors: the reference aborts here (assert,
+    vfgs_hw.c:348); we terminate the run with an error instead of silently
+    continuing on the previous config."""
+
+
+def adjust_chroma_cfg(sei, fmt: int) -> None:
+    """Chroma model-value conversion for 4:2:2/4:2:0 (vfgs_main.c:208-230).
+
+    Mutates in place; applied on every config pop, so values re-read from a
+    config file get adjusted once but inherited values get re-adjusted (this
+    matches the reference, whose statics persist across pops)."""
+    if sei.model_id == 0:
+        for c in (1, 2):
+            if sei.comp_model_present_flag[c]:
+                for k in range(sei.num_intensity_intervals[c]):
+                    v = sei.comp_model_value[c][k]
+                    if fmt < yuv.YUV_444:
+                        v[1] = max(2, min(14, int(v[1]) << 1))
+                    if fmt < yuv.YUV_422:
+                        v[2] = max(2, min(14, int(v[2]) << 1))
+                    if fmt == yuv.YUV_420:
+                        v[0] = int(v[0]) >> 1
+                    elif fmt == yuv.YUV_422:
+                        v[0] = (int(v[0]) * 181 + 128) >> 8
+
+
+def check_cfg_sei(sei, fmt: int, depth: int) -> None:
+    """vfgs_main.c:232-267, including the index typo in the vertical-cutoff
+    check (the lower bound is tested on value[1], vfgs_main.c:254)."""
+    _check(fmt == yuv.YUV_420 or (not sei.comp_model_present_flag[1]
+                                  and not sei.comp_model_present_flag[2]),
+           "color grain currently not supported on yuv422 and yuv444 formats")
+    _check(sei.model_id == 0 or (not sei.comp_model_present_flag[1]
+                                 and not sei.comp_model_present_flag[2]),
+           "color grain currently not supported in SEI.AR mode")
+    _check(sei.model_id <= 1, "SEIFGCModelId shall be 0 or 1")
+    rng = 1 << depth
+    for c in range(3):
+        if sei.comp_model_present_flag[c]:
+            _check(1 <= sei.num_model_values[c] <= 6,
+                   f"SEIFGCNumModelValuesMinus1Comp{c} out of 0..5 range")
+            for i in range(sei.num_intensity_intervals[c]):
+                v = sei.comp_model_value[c][i]
+                _check(sei.intensity_interval_lower_bound[c][i]
+                       <= sei.intensity_interval_upper_bound[c][i],
+                       f"inconsistent interval {i} for component {c}")
+                _check(v[0] < rng,
+                       f"scaling factor for component {c} and interval {i} is too large")
+                if sei.model_id == 0:
+                    _check(2 <= v[1] <= 14,
+                           f"horizontal cutoff frequency for component {c} and "
+                           f"interval {i} out of 2..14 range")
+                    _check(v[1] >= 2 and v[2] <= 14,
+                           f"vertical cutoff frequency for component {c} and "
+                           f"interval {i} out of 2..14 range")
+                else:
+                    for mv in (1, 3, 5):
+                        _check(-rng // 2 <= v[mv] < rng // 2,
+                               f"AR coefficient for component {c} and interval "
+                               f"{i} is out of range")
+
+
+def check_cfg_afgs1(afgs1, fmt: int) -> None:
+    """vfgs_main.c:269-298."""
+    _check(fmt == yuv.YUV_420 or (not afgs1.num_cb_points
+                                  and not afgs1.num_cr_points),
+           "color grain currently not supported on yuv422 and yuv444 formats")
+    for name, vals, n in (("y", afgs1.point_y_values, afgs1.num_y_points),
+                          ("cb", afgs1.point_cb_values, afgs1.num_cb_points),
+                          ("cr", afgs1.point_cr_values, afgs1.num_cr_points)):
+        for i in range(1, n):
+            _check(vals[i] > vals[i - 1],
+                   f"afgs1.point_{name}_values shall be in increasing order")
+
+
+def check_cfg(sei, afgs1, fmt: int, depth: int) -> None:
+    if afgs1.num_y_points:
+        check_cfg_afgs1(afgs1, fmt)
+    else:
+        check_cfg_sei(sei, fmt, depth)
+
+
+def apply_gain(gain: int, sei, afgs1) -> None:
+    """Global grain-strength rescale (vfgs_main.c:561-593). Mutates in place.
+
+    ``gain`` is unsigned in the reference (so a negative CLI value wraps to a
+    huge number and the halving loop still terminates), and the scale
+    multiplications are unsigned 32-bit; both are replicated here."""
+    gain = int(gain) & 0xFFFFFFFF
+    if gain == 100:
+        return
+
+    def umul_div(v: int) -> int:
+        # (int)v * (unsigned)gain / 100 in C: unsigned 32-bit wrap + udiv.
+        return ((int(v) * gain) & 0xFFFFFFFF) // 100
+
+    if afgs1.num_y_points:
+        while gain > 100:
+            afgs1.grain_scaling = (afgs1.grain_scaling - 1) & 0xFF
+            gain //= 2
+        while gain and gain < 50:
+            afgs1.grain_scaling = (afgs1.grain_scaling + 1) & 0xFF
+            gain *= 2
+        for arr, n in ((afgs1.point_y_scaling, afgs1.num_y_points),
+                       (afgs1.point_cb_scaling, afgs1.num_cb_points),
+                       (afgs1.point_cr_scaling, afgs1.num_cr_points)):
+            for i in range(n):
+                arr[i] = np.uint8(umul_div(arr[i]) & 0xFF)
+    else:
+        while gain > 100:
+            sei.log2_scale_factor = (sei.log2_scale_factor - 1) & 0xFF
+            gain //= 2
+        while gain and gain < 50:
+            sei.log2_scale_factor = (sei.log2_scale_factor + 1) & 0xFF
+            gain *= 2
+        for c in range(3):
+            if sei.comp_model_present_flag[c]:
+                for i in range(sei.num_intensity_intervals[c]):
+                    v = umul_div(sei.comp_model_value[c][i][0])
+                    sei.comp_model_value[c][i][0] = np.int16(
+                        ((v + 0x8000) & 0xFFFF) - 0x8000)
+
+
+def parse_cfg_param(param: str):
+    """Parse a ``[poc:]filename`` -c argument (vfgs_main.c:595-633)."""
+    poc = 0
+    filename = param
+    idx = param.find(":")
+    if idx >= 0:
+        head = param[:idx]
+        if head and all(parsers._isdig(ch) for ch in head):
+            _check(len(head) < 16, "illegal configuration POC")
+            poc = int(head)
+            filename = param[idx + 1:]
+    return poc, filename
+
+
+class GrainPipeline:
+    """Holds persistent metadata/register state and processes frames."""
+
+    def __init__(self, width: int, height: int, depth: int, fmt: int,
+                 gain: int = 100, seed: int = 0, seek: int = 0,
+                 configs=(), engine: str = "auto", grain_offset: int = 0,
+                 initial_sei=None, initial_afgs1=None, device=None):
+        """``initial_sei``/``initial_afgs1`` replace the built-in default
+        config (vfgs_main.c:69-125).  The CLI always starts from the default
+        like the reference (which therefore cannot run 4:2:2/4:4:4 at all --
+        its chroma-bearing default fails validation); library users can pass
+        a luma-only config here to process those formats.
+
+        ``device``: where frames are grained; defaults to ``cuda`` when a
+        card is present and ``cpu`` otherwise.  ``engine``: ``natural`` is
+        the CUDA kernel (ops/grain_natural.py) and needs a CUDA device;
+        ``ref`` and ``fast`` are the plain torch engine on ``device``;
+        ``auto`` picks ``natural`` on CUDA and ``ref`` elsewhere."""
+        if depth not in (8, 10):
+            raise ConfigError("input depth must be 8 or 10")
+        if width <= 128 or height < 128:
+            # The reference hard-asserts width > 128 in the HW hot path
+            # (vfgs_hw.c:167-170) and aborts at width == 128; we reject it as
+            # a config error instead.
+            raise ConfigError("width must be greater than 128 and height at "
+                              "least 128")
+        if grain_offset < 0:
+            raise ConfigError("grain offset must be non-negative")
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        if engine == "auto":
+            engine = "natural" if self.device.type == "cuda" else "ref"
+        if engine == "pallas":
+            raise ConfigError("engine 'pallas' is not ported yet")
+        if engine not in ("natural", "fast", "ref"):
+            raise ConfigError(f"unknown engine {engine!r}")
+        if engine == "natural" and self.device.type != "cuda":
+            raise RuntimeError("engine 'natural' is the CUDA kernel and needs "
+                               f"a CUDA device, got {self.device}")
+        self.engine = engine
+        self.width, self.height = width, height
+        self.depth, self.fmt = depth, fmt
+        self.gain, self.seek = gain, seek
+        self.sei = initial_sei if initial_sei is not None else cfgmod.default_sei()
+        self.afgs1 = (initial_afgs1 if initial_afgs1 is not None
+                      else cfgmod.default_afgs1())
+        self.regs = HwRegs()
+        self.configs = [parse_cfg_param(p) for p in configs]
+        _check(len(self.configs) <= MAX_CONFIGS,
+               f"too many configurations (maximum is {MAX_CONFIGS})")
+        self.icfg = 0
+        self.epoch = 0  # frame index of last reseed
+        # Extension beyond the reference: offset the grain-state lattice so a
+        # run over frames [grain_offset, ...) is bit-identical to those frames
+        # of a full seek-0 run (the reference's -s restarts grain state from
+        # the seed, which we replicate when grain_offset == 0).  This is what
+        # makes disjoint frame shards concatenate exactly.
+        self.grain_offset = grain_offset
+        self._tables_cache = None  # (generation, device tables)
+        self._cfg_generation = 0
+        self._pbuf = None
+        self._R = -(-height // 16)
+        self._C = -(-width // 16)
+
+        check_cfg(self.sei, self.afgs1, fmt, depth)
+        self.regs.set_depth(depth)
+        self.regs.set_chroma_subsampling(2 if fmt < yuv.YUV_444 else 1,
+                                         2 if fmt < yuv.YUV_422 else 1)
+        adjust_chroma_cfg(self.sei, fmt)
+        apply_gain(gain, self.sei, self.afgs1)
+        self._init_fw(frame=0)
+        if seed:
+            self.regs.set_seed(seed)
+
+    # ------------------------------------------------------------------
+
+    def _init_fw(self, frame: int) -> None:
+        # The reference aborts on an out-of-range scale shift (assert,
+        # vfgs_hw.c:348, e.g. --gain driving log2_scale_factor out of [2,8));
+        # we fail with a config error instead.
+        try:
+            if self.afgs1.num_y_points:
+                fw.init_afgs1(self.afgs1, self.regs)
+                self.epoch = frame  # init_afgs1 reseeds (vfgs_fw.c:672)
+            else:
+                fw.init_sei(self.sei, self.regs)
+        except ValueError as e:
+            raise FatalConfigError(str(e))
+        self._cfg_generation += 1
+
+    def _tables(self) -> dict:
+        """Device tables of the current config, uploaded once per config."""
+        if (self._tables_cache is None
+                or self._tables_cache[0] != self._cfg_generation):
+            self._tables_cache = (self._cfg_generation,
+                                  natural_tables(self.regs, self.device))
+        return self._tables_cache[1]
+
+    def _step(self, y, u, v, bases, tables):
+        """Grain a batch of padded device planes with the selected engine."""
+        kw = dict(bs=self.regs.bs, csubx=self.regs.csubx,
+                  csuby=self.regs.csuby)
+        if self.engine == "natural":
+            return add_grain_batch_natural(y, u, v, bases, None, tables,
+                                           height=self.height,
+                                           width=self.width, **kw)
+        return add_grain_batch_plain(y, u, v, bases, tables, **kw)
+
+    def pop_cfg(self, frame: int) -> None:
+        """Re-read/validate/adjust/re-init for the next scheduled config."""
+        _check(self.icfg < len(self.configs), "No configuration to pop")
+        poc, filename = self.configs[self.icfg]
+        parsers.read_cfg(filename, self.sei, self.afgs1)
+        check_cfg(self.sei, self.afgs1, self.fmt, self.depth)
+        adjust_chroma_cfg(self.sei, self.fmt)
+        apply_gain(self.gain, self.sei, self.afgs1)
+        self.icfg += 1
+        if self.grain_offset:
+            # Sharded mode: an AFGS1 reseed epoch is the config's global POC
+            # (where the full seek-0 run would have popped it), keeping shard
+            # output identical to the full run.
+            self._init_fw(poc)
+        else:
+            self._init_fw(frame)
+
+    def maybe_switch_config(self, n: int) -> None:
+        while (self.icfg < len(self.configs)
+               and n + self.seek >= self.configs[self.icfg][0]):
+            try:
+                self.pop_cfg(n)
+            except FatalConfigError:
+                raise
+            except (ConfigError, OSError, ValueError, IndexError,
+                    UnicodeDecodeError) as e:
+                # The reference keeps processing with the previous config on a
+                # failed read/check pop (vfgs_main.c:773-776); malformed
+                # inputs that would be undefined behaviour in C (e.g. the
+                # dump parser's component counter running past 2) are
+                # treated the same way.
+                print(f"Error: {e}", file=sys.stderr)
+                break
+
+    # ------------------------------------------------------------------
+
+    def _has_pad_leak(self) -> bool:
+        """True when a deblock at the last interior block boundary reads one
+        grain sample beyond the real width (component width == 1 mod block
+        width).  The reference then depends on its persistent frame buffer's
+        stride padding -- malloc-zeroed at start, accumulating grained values
+        across frames (vfgs_hw.c:243-283 writes the full final block;
+        yuv_read only overwrites `width` samples per row) -- so those widths
+        need the stateful padded-buffer path to stay bit-exact."""
+        if self._C < 2:
+            return False
+        for subx in (1, self.regs.csubx):
+            if (self.width // subx) % (16 // subx) == 1:
+                return True
+        return False
+
+    def frame_bases(self, n: int) -> tuple[int, int]:
+        """LFSR lattice bases for frame n (see ops/lfsr.py)."""
+        R, C = self._R, self._C
+        e0 = lfsr.frame_base_exponent(n + self.grain_offset - self.epoch,
+                                      R, C)
+        base = int(lfsr.advance(np.uint32(self.regs.seed_state), e0))
+        base_up = (int(lfsr.advance(np.uint32(self.regs.seed_state), e0 - C))
+                   if e0 > 0 else base)
+        return base, base_up
+
+    # ------------------------------------------------------------------
+
+    def process_frame(self, planes, n: int):
+        """Add grain to one (Y, U, V) frame (numpy in/out, same dtype)."""
+        self.maybe_switch_config(n)
+        return self._run_engine(planes, n)
+
+    def _run_engine(self, planes, n: int):
+        R, C = self._R, self._C
+        bhc = 16 // self.regs.csuby
+        bwc = 16 // self.regs.csubx
+        y, u, v = planes
+        if self._has_pad_leak():
+            # Stateful padding: replicate the reference's persistent frame
+            # buffer (zeros at start, grained padding carried across frames).
+            if self._pbuf is None:
+                self._pbuf = [
+                    np.zeros((R * 16, C * 16), y.dtype),
+                    np.zeros((R * bhc, C * bwc), u.dtype),
+                    np.zeros((R * bhc, C * bwc), v.dtype)]
+            for buf, p in zip(self._pbuf, (y, u, v)):
+                buf[:p.shape[0], :p.shape[1]] = p
+            padded = self._pbuf
+        else:
+            padded = (yuv.pad_plane(y, R * 16, C * 16),
+                      yuv.pad_plane(u, R * bhc, C * bwc),
+                      yuv.pad_plane(v, R * bhc, C * bwc))
+        base, _ = self.frame_bases(n)
+        dev = [torch.tensor(p)[None].to(self.device) for p in padded]
+        out = [o[0].cpu().numpy()
+               for o in self._step(*dev, [base], self._tables())]
+        if self._has_pad_leak():
+            # Carry the grained padding into the next frame's buffer (a
+            # copy: the frames returned below must not alias it).
+            self._pbuf = [o.copy() for o in out]
+        cw, ch = u.shape[1], u.shape[0]
+        return (out[0][:self.height, :self.width],
+                out[1][:ch, :cw], out[2][:ch, :cw])
+
+    # ------------------------------------------------------------------
+
+    def run(self, fsrc, fdst, frames: int = 0, odepth: int = 0) -> int:
+        """Full frame loop (vfgs_main.c:762-796). Returns frames written."""
+        odepth = odepth or self.depth
+        assert odepth in (8, 10) and odepth <= self.depth
+        yuv.skip_frames(fsrc, self.seek, self.width, self.height,
+                        self.depth, self.fmt)
+        n = 0
+        while frames == 0 or n < frames:
+            self.maybe_switch_config(n)
+            planes = yuv.read_frame(fsrc, self.width, self.height,
+                                    self.depth, self.fmt)
+            if planes is None:
+                break
+            out = self._run_engine(planes, n)
+            if odepth < self.depth:
+                out = yuv.to_8bit(out)
+            yuv.write_frame(fdst, out, odepth)
+            n += 1
+        return n
+
+    # -- batched high-throughput file pipeline --------------------------
+
+    def _split_frame(self, raw: np.ndarray):
+        """View a raw frame byte buffer as (Y, U, V) planes."""
+        w, h = self.width, self.height
+        cw, ch = yuv.chroma_dims(w, h, self.fmt)
+        dt = np.uint8 if self.depth == 8 else np.dtype("<u2")
+        arr = raw.view(dt)
+        y = arr[:w * h].reshape(h, w)
+        u = arr[w * h:w * h + cw * ch].reshape(ch, cw)
+        v = arr[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw)
+        return y, u, v
+
+    def run_file(self, src: str, dst: str, frames: int = 0, odepth: int = 0,
+                 batch: int = 4, profile_dir: str | None = None,
+                 verbose: bool = False) -> int:
+        """Batched frame loop over file paths: prefetching native reader,
+        async writer, one device step per batch.  Bit-identical output to
+        :meth:`run`; batches never straddle a config-switch POC.
+
+        On CUDA, batch N+1 is read and staged in pinned host memory while
+        batch N computes, and batch N's device-to-host copy is waited for
+        only when it is written out, one batch later.  ``profile_dir``
+        writes a torch.profiler trace (``trace.json``) of the loop;
+        ``verbose`` prints per-stage wall-clock to stderr."""
+        import time as _time
+        from .utils import native_io
+        use_native = native_io.available()
+
+        def open_src():
+            try:
+                return open(src, "rb")
+            except OSError:
+                raise OSError(f"Can not open file {src}")
+
+        def open_dst():
+            try:
+                return open(dst, "wb")
+            except OSError:
+                raise OSError(f"Can not create file {dst}")
+
+        if batch <= 1 or self._has_pad_leak():
+            # Pad-leak widths couple consecutive frames through the padding
+            # columns (see _has_pad_leak), so they use the per-frame path.
+            if batch > 1:
+                print(f"[vfg-torch] note: width {self.width} leaves a one-"
+                      "sample deblock read past the frame edge (component "
+                      "width % block width == 1); the reference feeds its "
+                      "persistent buffer padding across frames there, so "
+                      "frames are processed one at a time to stay bit-exact "
+                      "(slower than the batched path)", file=sys.stderr)
+            with open_src() as fs, open_dst() as fd:
+                return self.run(fs, fd, frames=frames, odepth=odepth)
+
+        odepth = odepth or self.depth
+        assert odepth in (8, 10) and odepth <= self.depth
+        fbytes = yuv.frame_bytes(self.width, self.height, self.depth, self.fmt)
+        obytes = yuv.frame_bytes(self.width, self.height, odepth, self.fmt)
+        R, C = self._R, self._C
+        bhc, bwc = 16 // self.regs.csuby, 16 // self.regs.csubx
+        cw, ch = yuv.chroma_dims(self.width, self.height, self.fmt)
+        shapes = ((R * 16, C * 16), (R * bhc, C * bwc), (R * bhc, C * bwc))
+        tdtype = torch.uint8 if self.depth == 8 else torch.uint16
+        cuda = self.device.type == "cuda"
+
+        if use_native:
+            reader = native_io.FrameReader(src, fbytes, nbuf=max(4, batch),
+                                           seek_frames=self.seek)
+            writer = native_io.FrameWriter(dst, obytes, nbuf=max(4, batch))
+        else:
+            fsrc = open_src()
+            fdst = open_dst()
+            yuv.skip_frames(fsrc, self.seek, self.width, self.height,
+                            self.depth, self.fmt)
+
+        def read_raw():
+            if use_native:
+                return reader.next()
+            raw = fsrc.read(fbytes)
+            if len(raw) != fbytes:
+                return None
+            return np.frombuffer(raw, dtype=np.uint8)
+
+        n = 0
+        eof = False
+        pending = None  # (host outputs, ready event or None, count)
+        prof = None
+        if profile_dir:
+            from torch.profiler import ProfilerActivity, profile
+            os.makedirs(profile_dir, exist_ok=True)
+            prof = profile(activities=[ProfilerActivity.CPU]
+                           + ([ProfilerActivity.CUDA] if cuda else []))
+            prof.__enter__()
+        t_read = t_step = t_write = 0.0
+        t_start = _time.perf_counter()
+
+        def prepare(n0):
+            """Stage the batch starting at global frame ``n0``: pop any due
+            config, read + pad the raw frames into (pinned) host tensors,
+            START their copy to the device, and resolve the tables of the
+            (possibly new) config.  Called for batch N+1 right after batch
+            N's step is enqueued, so the host work overlaps the compute."""
+            nonlocal eof, t_read
+            if eof or (frames and n0 >= frames):
+                return None
+            self.maybe_switch_config(n0)
+            # frames until the next config switch
+            limit = batch
+            if self.icfg < len(self.configs):
+                limit = min(limit,
+                            max(1, self.configs[self.icfg][0]
+                                - (n0 + self.seek)))
+            if frames:
+                limit = min(limit, frames - n0)
+            raws = []
+            t0 = _time.perf_counter()
+            for _ in range(limit):
+                raw = read_raw()
+                if raw is None:
+                    eof = True
+                    break
+                raws.append(raw)
+            if not raws:
+                t_read += _time.perf_counter() - t0
+                return None
+            count = len(raws)
+            host = [torch.empty((count, *s), dtype=tdtype, pin_memory=cuda)
+                    for s in shapes]
+            views = [h.numpy() for h in host]
+            for i, raw in enumerate(raws):
+                for view, plane, (ph, pw) in zip(views, self._split_frame(raw),
+                                                 shapes):
+                    view[i] = yuv.pad_plane(plane, ph, pw)
+            t_read += _time.perf_counter() - t0
+            bases = [self.frame_bases(n0 + i)[0] for i in range(count)]
+            dev = [h.to(self.device, non_blocking=True) for h in host]
+            # resolve the tables NOW: a later prepare() may pop the next
+            # config before this batch runs
+            return dev, bases, self._tables(), count
+
+        def start_download(out):
+            """Enqueue the device-to-host copy of a batch's outputs."""
+            if not cuda:
+                return [o.numpy() for o in out], None
+            host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                    for o in out]
+            for h, o in zip(host, out):
+                h.copy_(o, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+            return [h.numpy() for h in host], ready
+
+        def flush(p):
+            (yo, uo, vo), ready, count = p
+            if ready is not None:
+                ready.synchronize()
+            for i in range(count):
+                planes = (yo[i, :self.height, :self.width],
+                          uo[i, :ch, :cw], vo[i, :ch, :cw])
+                if odepth < self.depth:
+                    planes = yuv.to_8bit(planes)
+                if use_native:
+                    writer.put(np.concatenate(
+                        [np.ascontiguousarray(q).view(np.uint8).reshape(-1)
+                         for q in planes]))
+                else:
+                    yuv.write_frame(fdst, planes, odepth)
+
+        try:
+            cur = prepare(0)
+            while cur is not None:
+                dev, bases, tables, count = cur
+                t0 = _time.perf_counter()
+                out = self._step(*dev, bases, tables)
+                # Start this batch's copy back now; flush() waits for it one
+                # batch later, after the next batch has been staged.
+                done = start_download(out)
+                t_step += _time.perf_counter() - t0
+                n += count
+                cur = prepare(n)
+                t0 = _time.perf_counter()
+                if pending is not None:
+                    flush(pending)
+                t_write += _time.perf_counter() - t0
+                pending = (*done, count)
+            t0 = _time.perf_counter()
+            if pending is not None:
+                flush(pending)
+            t_write += _time.perf_counter() - t0
+        finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                prof.export_chrome_trace(os.path.join(profile_dir,
+                                                      "trace.json"))
+            if verbose:
+                total = _time.perf_counter() - t_start
+                fps = n / total if total > 0 else 0.0
+                print(f"[vfg-torch] {n} frames in {total:.3f}s ({fps:.1f} fps)"
+                      f" on {self.device} ({self.engine}) | read+stage "
+                      f"{t_read:.3f}s step {t_step:.3f}s drain+write "
+                      f"{t_write:.3f}s", file=sys.stderr)
+            if use_native:
+                reader.close()
+                writer.close()
+            else:
+                fsrc.close()
+                fdst.close()
+        return n

@@ -1,0 +1,79 @@
+"""Planar YUV file I/O (reference: src/yuv.c).
+
+The reference allocates stride-aligned frames and reads/writes row-wise
+(yuv.c:54-214); file bytes are plain contiguous W*H planes, so we read
+straight into contiguous numpy arrays and let the engine do its own padding.
+10-bit samples are uint16 little-endian.
+"""
+
+from __future__ import annotations
+
+import io
+
+import numpy as np
+
+YUV_420 = 0
+YUV_422 = 1
+YUV_444 = 2
+
+
+def chroma_dims(width: int, height: int, fmt: int) -> tuple[int, int]:
+    subx = 1 if fmt > YUV_422 else 2
+    suby = 1 if fmt > YUV_420 else 2
+    return width // subx, height // suby
+
+
+def frame_bytes(width: int, height: int, depth: int, fmt: int) -> int:
+    cw, ch = chroma_dims(width, height, fmt)
+    sz = 1 if depth == 8 else 2
+    return (width * height + 2 * cw * ch) * sz
+
+
+def skip_frames(f, n: int, width: int, height: int, depth: int, fmt: int) -> None:
+    """yuv_skip (yuv.c:97-106).
+
+    The reference ignores fseeko's return value, so seeking an unseekable
+    stream (FIFO/stdin) silently does nothing; replicate that."""
+    if not n:
+        return
+    try:
+        f.seek(frame_bytes(width, height, depth, fmt) * n, 1)
+    except (OSError, ValueError, io.UnsupportedOperation):
+        pass
+
+
+def read_frame(f, width: int, height: int, depth: int, fmt: int):
+    """Read one frame; returns (Y, U, V) uint8/uint16 arrays or None at EOF.
+
+    Uses plain read() + frombuffer (np.fromfile needs a seekable stream and
+    fails on FIFOs/pipes, which the reference's fread handles fine)."""
+    cw, ch = chroma_dims(width, height, fmt)
+    dt = np.dtype(np.uint8) if depth == 8 else np.dtype("<u2")
+    planes = []
+    for w, h in ((width, height), (cw, ch), (cw, ch)):
+        want = w * h * dt.itemsize
+        raw = f.read(want)
+        if len(raw) != want:
+            return None
+        planes.append(np.frombuffer(raw, dtype=dt).reshape(h, w))
+    return tuple(planes)
+
+
+def write_frame(f, planes, depth: int) -> None:
+    dt = np.uint8 if depth == 8 else np.dtype("<u2")
+    for p in planes:
+        f.write(np.ascontiguousarray(p, dtype=dt).tobytes())
+
+
+def to_8bit(planes):
+    """10-bit -> 8-bit with rounding (x+2)>>2 (yuv.c:216-258)."""
+    return tuple(((p.astype(np.uint16) + 2) >> 2).astype(np.uint8)
+                 for p in planes)
+
+
+def pad_plane(p: np.ndarray, ph: int, pw: int) -> np.ndarray:
+    """Edge-pad a plane to (ph, pw); padded samples never reach the output."""
+    h, w = p.shape
+    if h == ph and w == pw:
+        return p
+    return np.pad(p, ((0, ph - h), (0, pw - w)), mode="edge")
