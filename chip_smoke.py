@@ -6,8 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, one result line each:
   1. device   -- the card's name and power limit;
-  2. build    -- nvcc builds csrc/grain_natural.cu; ptxas' register, shared
-                 memory and spill report;
+  2. build    -- nvcc builds csrc/grain_natural.cu and csrc/grain_tiled.cu,
+                 both at once; ptxas' register, shared memory and spill
+                 report;
   3. kernel   -- the kernel against its plain torch version on the card at
                  3840x2160 10-bit 4:2:0, default config, one batch of 8
                  frames; exact equality on all planes; both timed with CUDA
@@ -18,8 +19,17 @@ Phases, one result line each:
                  every sha256 checked, kernel launches counted;
   6. cli 4K   -- the port's CLI on an 8-frame 3840x2160 10-bit 4:2:0 file with
                  --batch 8 (the main path; launches counted), output size and
-                 first frame checked against the plain version.
-Then one JSON line describing the kernel, and as the last line
+                 first frame checked against the plain version;
+  7. tiled 4K -- the tiled engine (--engine pallas) at phase 3's shape: its
+                 kernel against its plain strip function on the card and
+                 against the natural kernel, exact on all planes; the kernel
+                 alone, the whole tiled step and the plain version timed;
+  8. tiled geometry -- phase 4's cases through the tiled kernel;
+  9. tiled golden   -- the 48 golden CLI cases through --engine pallas;
+ 10. tiled cli 4K   -- the CLI with --engine pallas --batch 8 on phase 6's
+                 file (the tiled engine's path; launches counted), output
+                 byte-identical to phase 6's.
+Then one JSON line describing both kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  It needs a CUDA device and the rest of the repository.
 """
@@ -103,6 +113,60 @@ def kernel_vs_plain(pipe, frame_ids, seed, dev):
     return err, planes, bases, tables
 
 
+def tiled_vs_plain(pipe, frame_ids, seed, dev):
+    """Run the tiled engine, its plain strip function (on the same device)
+    and the natural kernel on the same inputs; returns (max |err| against
+    the plain version, max |err| against the natural kernel, planes,
+    (bases, bases_up), tables)."""
+    from versatilefilmgrain_tpu_torch.ops import grain_natural, grain_pallas
+    regs = pipe.regs
+    tables = grain_pallas.pallas_tables(regs, dev)
+    planes = random_batch(pipe, len(frame_ids), seed, dev)
+    bases, bases_up = (list(b) for b in
+                       zip(*(pipe.frame_bases(f) for f in frame_ids)))
+    geo = dict(bs=regs.bs, csubx=regs.csubx, csuby=regs.csuby)
+    R, C = -(-pipe.height // 16), -(-pipe.width // 16)
+    k = grain_pallas.add_grain_batch_pallas(
+        *planes, bases, bases_up, tables, height=pipe.height,
+        width=pipe.width, **geo)
+    p = grain_pallas._tiled_batch(*planes, bases, bases_up, tables, R=R, C=C,
+                                  strip_fn=grain_pallas.plane_tiled_plain,
+                                  **geo)
+    n = grain_natural.add_grain_batch_natural(
+        *planes, bases, bases_up, grain_natural.natural_tables(regs, dev),
+        height=pipe.height, width=pipe.width, **geo)
+    torch.cuda.synchronize()
+    for c, (a, b) in enumerate(zip(k, p)):
+        check(a.dtype == b.dtype and a.shape == b.shape,
+              f"tiled plane {c}: {a.dtype}{tuple(a.shape)} vs "
+              f"{b.dtype}{tuple(b.shape)}")
+    err_p = max(int((a.int() - b.int()).abs().max()) for a, b in zip(k, p))
+    err_n = max(int((a.int() - b.int()).abs().max()) for a, b in zip(k, n))
+    return err_p, err_n, planes, (bases, bases_up), tables
+
+
+def run_golden(cli, golden, golden_cli_args, make_input_yuv, engine):
+    """Every golden CLI case through the port's CLI with ``engine``; checks
+    each output's size and sha256."""
+    for name in sorted(golden):
+        entry = golden[name]
+        case = entry["case"]
+        inp = os.path.join(SCRATCH, "in_%dx%d_%db_%d_%df.yuv" % (
+            case["w"], case["h"], case["depth"], case["fmt"],
+            case["in_frames"]))
+        if not os.path.exists(inp):
+            make_input_yuv(inp, case["w"], case["h"], case["depth"],
+                           case["fmt"], case["in_frames"])
+        out = os.path.join(SCRATCH, "out.yuv")
+        rc = cli.main(["vfgs-torch", "--engine", engine]
+                      + golden_cli_args(case, inp, out))
+        check(rc == 0, f"golden {name} ({engine}): CLI exit {rc}")
+        data = open(out, "rb").read()
+        check(len(data) == entry["bytes"]
+              and hashlib.sha256(data).hexdigest() == entry["sha256"],
+              f"golden {name} ({engine}): output differs from the reference")
+
+
 def luma_only_sei():
     """Luma-only FGC SEI (the 4:2:2/4:4:4 format goldens' config)."""
     from versatilefilmgrain_tpu_torch.models import config as cfgmod
@@ -131,12 +195,14 @@ def main() -> int:
     from gen_input import make_input_yuv
     from torch_port_cases import golden_cli_args
     from versatilefilmgrain_tpu_torch import GrainPipeline, cli
-    from versatilefilmgrain_tpu_torch.ops import _kernels, grain_natural
+    from versatilefilmgrain_tpu_torch.ops import (_kernels, grain_natural,
+                                                  grain_pallas, lfsr)
     from versatilefilmgrain_tpu_torch.ops.grain_ref import plane_grain
     from versatilefilmgrain_tpu_torch.utils import yuv
 
     dev = torch.device(DEVICE)
     counter = grain_natural.grain_plane_cuda
+    tcounter = grain_pallas.plane_tiled_cuda
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -148,15 +214,19 @@ def main() -> int:
           f"{torch.version.cuda}; devices {torch.cuda.device_count()}")
     print(smi, flush=True)
 
-    # 2. build
+    # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    _kernels.load("grain_natural")
-    log = _kernels.build_logs.get("grain_natural", "(library was up to date)")
-    phase("build", f"grain_natural.cu built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s")
-    for line in log.strip().splitlines():
-        if "ptxas" in line or "spill" in line:
-            print("   " + line.strip(), flush=True)
+    sources = ("grain_natural", "grain_tiled")
+    _kernels.build(sources)
+    for name in sources:
+        _kernels.load(name)
+    phase("build", f"{', '.join(s + '.cu' for s in sources)} built and "
+          f"loaded in {time.perf_counter() - t0:.1f} s")
+    for name in sources:
+        log = _kernels.build_logs.get(name, "(library was up to date)")
+        for line in log.strip().splitlines():
+            if "ptxas" in line or "spill" in line:
+                print(f"   {name}: {line.strip()}", flush=True)
 
     # 3. kernel vs plain at the main path's shape
     W, H, F = FULL
@@ -230,23 +300,7 @@ def main() -> int:
     os.makedirs(SCRATCH)
     counter.launches = 0
     t0 = time.perf_counter()
-    for name in sorted(golden):
-        entry = golden[name]
-        case = entry["case"]
-        inp = os.path.join(SCRATCH, "in_%dx%d_%db_%d_%df.yuv" % (
-            case["w"], case["h"], case["depth"], case["fmt"],
-            case["in_frames"]))
-        if not os.path.exists(inp):
-            make_input_yuv(inp, case["w"], case["h"], case["depth"],
-                           case["fmt"], case["in_frames"])
-        out = os.path.join(SCRATCH, "out.yuv")
-        rc = cli.main(["vfgs-torch", "--engine", "auto"]
-                      + golden_cli_args(case, inp, out))
-        check(rc == 0, f"golden {name}: CLI exit {rc}")
-        data = open(out, "rb").read()
-        check(len(data) == entry["bytes"]
-              and hashlib.sha256(data).hexdigest() == entry["sha256"],
-              f"golden {name}: output differs from the reference")
+    run_golden(cli, golden, golden_cli_args, make_input_yuv, "auto")
     golden_launches = counter.launches
     check(golden_launches > 0, "golden cases never launched the kernel")
     phase("golden", f"{len(golden)}/{len(golden)} sha256 match through "
@@ -282,6 +336,110 @@ def main() -> int:
     phase("cli 4K", f"{F} frames {W}x{H} 10-bit 4:2:0 --batch {F}: "
           f"{launches} kernel launches, {F * fbytes} bytes out, frame 0 == "
           f"plain version; wall {wall:.3f} s with file I/O (card {card})")
+
+    # 7. the tiled engine at the main path's shape
+    tpipe = GrainPipeline(W, H, 10, yuv.YUV_420, device=dev, engine="pallas")
+    terr, terr_n, planes, (bases, bases_up), ttables = tiled_vs_plain(
+        tpipe, frame_ids, 5, dev)
+    check(terr == 0, f"4K tiled kernel differs from its plain version "
+          f"(max |err| {terr})")
+    check(terr_n == 0, f"4K tiled kernel differs from the natural kernel "
+          f"(max |err| {terr_n})")
+    R4, C4 = -(-H // 16), -(-W // 16)
+    lat = grain_natural._lattice(bases, planes[0])
+    lat_up = torch.cat([lfsr.state_lattice_torch(bases_up, 1, C4, dev),
+                        lat[:, :-1]], dim=1)
+    tregs = tpipe.regs
+    tgeo = dict(bs=tregs.bs, csubx=tregs.csubx, csuby=tregs.csuby)
+    # pre-tiled kernel arguments, one per plane
+    strips = [grain_pallas._strip_args(p, c, lat, lat_up, ttables, R=R4,
+                                       C=C4, **tgeo)
+              for c, p in enumerate(planes)]
+
+    def run_tiled_kernel():
+        for args, kw in strips:
+            grain_pallas.plane_tiled_cuda(*args, **kw)
+
+    def run_tiled_step():
+        grain_pallas.add_grain_batch_pallas(
+            *planes, bases, bases_up, ttables, height=H, width=W, **tgeo)
+
+    def run_tiled_plain():
+        for args, kw in strips:
+            grain_pallas.plane_tiled_plain(*args, **kw)
+
+    def run_natural_step():
+        grain_natural.add_grain_batch_natural(
+            *planes, bases, bases_up, tables, height=H, width=W, **tgeo)
+
+    ms_tk = cuda_ms(run_tiled_kernel, 20)
+    ms_tp = cuda_ms(run_tiled_plain, 5, warmup=1)
+    ms_ts = cuda_ms(run_tiled_step, 20)
+    ms_ns = cuda_ms(run_natural_step, 20)
+    ms_tk2 = cuda_ms(run_tiled_kernel, 20)
+    ms_tp2 = cuda_ms(run_tiled_plain, 5, warmup=1)
+    ms_ts2 = cuda_ms(run_tiled_step, 20)
+    ms_ns2 = cuda_ms(run_natural_step, 20)
+    phase("tiled 4K", f"{W}x{H} 10-bit 4:2:0 default config, batch {F}, "
+          f"frames {frame_ids}: tiled kernel == its plain version (max |err| "
+          f"{terr}) == natural kernel (max |err| {terr_n}) on Y, U, V")
+    phase("tiled 4K", f"time per batch step (CUDA events, warmed up; runs "
+          f"kernel, plain, tiled step, natural step, and again): kernel "
+          f"alone (3 launches on pre-tiled strips) {ms_tk:.4f} / "
+          f"{ms_tk2:.4f} ms, plain strip function on the same strips "
+          f"{ms_tp:.3f} / {ms_tp2:.3f} ms, whole tiled step (lattices, "
+          f"offsets, tile, kernel, untile) {ms_ts:.4f} / {ms_ts2:.4f} ms, "
+          f"natural step (lattice, K1) {ms_ns:.4f} / {ms_ns2:.4f} ms; "
+          f"{nbytes / 1e6:.1f} MB moved by the kernel = "
+          f"{nbytes / (min(ms_tk, ms_tk2) * 1e-3) / 1e12:.3f} TB/s; "
+          f"card {card}")
+    tiled_ms, tiled_plain_ms = min(ms_tk, ms_tk2), min(ms_tp, ms_tp2)
+    del planes, lat, lat_up, strips
+
+    # 8. tiled engine, other geometries (frames 0, 1, 3)
+    for i, (name, w, h, depth, fmt, kw) in enumerate(cases):
+        p = GrainPipeline(w, h, depth, fmt, device=dev, engine="pallas", **kw)
+        p.maybe_switch_config(0)
+        err, err_n, *_ = tiled_vs_plain(p, [0, 1, 3], 200 + i, dev)
+        check(err == 0 and err_n == 0,
+              f"{name}: tiled kernel differs from plain (max |err| {err}) "
+              f"or natural kernel (max |err| {err_n})")
+        phase("tiled geometry", f"{name}: tiled kernel == plain == natural "
+              f"kernel (max |err| 0)")
+
+    # 9. golden CLI cases through the tiled engine
+    tcounter.launches = 0
+    t0 = time.perf_counter()
+    run_golden(cli, golden, golden_cli_args, make_input_yuv, "pallas")
+    tgolden_launches = tcounter.launches
+    check(tgolden_launches > 0, "golden cases never launched the tiled kernel")
+    phase("tiled golden", f"{len(golden)}/{len(golden)} sha256 match through "
+          f"the port's CLI (--engine pallas); {tgolden_launches} tiled kernel "
+          f"launches; {time.perf_counter() - t0:.1f} s")
+
+    # 10. the tiled engine's path: the CLI on phase 6's file
+    tout = os.path.join(SCRATCH, "out_4k_pallas.yuv")
+    counter.launches = 0
+    tcounter.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["vfgs-torch", "-w", str(W), "-h", str(H), "-b", "10",
+                   "-f", "420", "-n", str(F), "--batch", str(F), "-v",
+                   "--engine", "pallas", inp, tout])
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t0
+    tlaunches, nlaunches = tcounter.launches, counter.launches
+    check(rc == 0, f"4K CLI run --engine pallas exit {rc}")
+    check(tlaunches > 0, "4K CLI run --engine pallas never launched the "
+          "tiled kernel")
+    check(nlaunches == 0, "4K CLI run --engine pallas launched the natural "
+          "kernel")
+    with open(out, "rb") as fa, open(tout, "rb") as fb:
+        check(fa.read() == fb.read(), "4K CLI output --engine pallas differs "
+              "from --engine auto")
+    phase("tiled cli 4K", f"{F} frames {W}x{H} 10-bit 4:2:0 --batch {F} "
+          f"--engine pallas: {tlaunches} tiled kernel launches, output "
+          f"byte-identical to --engine auto ({F * fbytes} bytes); wall "
+          f"{twall:.3f} s with file I/O (card {card})")
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
     print(json.dumps({"kernels": [{
@@ -289,7 +447,12 @@ def main() -> int:
         "source": "versatilefilmgrain_tpu_torch/csrc/grain_natural.cu",
         "replaces": "versatilefilmgrain_tpu/ops/grain_natural.py:584",
         "launches": launches, "max_abs_err": err4k,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}), flush=True)
+        "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "name": "grain_tiled", "route": "cuda",
+        "source": "versatilefilmgrain_tpu_torch/csrc/grain_tiled.cu",
+        "replaces": "versatilefilmgrain_tpu/ops/grain_pallas.py:189",
+        "launches": tlaunches, "max_abs_err": max(terr, terr_n),
+        "ms": tiled_ms, "plain_ms": tiled_plain_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -14,10 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_cases import REPO, golden_cli_args
+from torch_port_cases import REPO, golden_output
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
-from gen_golden import FMT_NAMES  # noqa: E402
 from gen_input import make_input_yuv  # noqa: E402
 
 GOLDEN = json.load(open(os.path.join(REPO, "tests", "golden",
@@ -33,17 +32,7 @@ def test_golden_cli(name, tmp_path_factory):
     tmpdir = str(tmp_path_factory.getbasetemp() / "torch_inputs")
     os.makedirs(tmpdir, exist_ok=True)
     entry = GOLDEN[name]
-    case = entry["case"]
-    inp = os.path.join(tmpdir, "in_%dx%d_%db_%s_%df.yuv" % (
-        case["w"], case["h"], case["depth"], FMT_NAMES[case["fmt"]],
-        case["in_frames"]))
-    if not os.path.exists(inp):
-        make_input_yuv(inp, case["w"], case["h"], case["depth"], case["fmt"],
-                       case["in_frames"])
-    out = os.path.join(tmpdir, f"out_{name}.yuv")
-    assert main(["vfgs-torch", "--engine", "auto"]
-                + golden_cli_args(case, inp, out)) == 0
-    data = open(out, "rb").read()
+    data = golden_output(main, entry, "auto", tmpdir)
     assert len(data) == entry["bytes"]
     assert hashlib.sha256(data).hexdigest() == entry["sha256"], \
         f"output differs from reference for {name}"

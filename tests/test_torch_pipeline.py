@@ -108,8 +108,11 @@ def test_engine_selection_without_card(monkeypatch, tmp_path):
     assert GrainPipeline(256, 144, 10, 0, engine="fast").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         GrainPipeline(256, 144, 10, 0, engine="natural")
-    with pytest.raises(ConfigError, match="not ported yet"):
-        GrainPipeline(256, 144, 10, 0, engine="pallas")
+    tiled = GrainPipeline(256, 144, 10, 0, engine="pallas")
+    assert (tiled.device.type, tiled.engine) == ("cpu", "pallas")
+    assert "win_luma" in tiled._tables()
+    with pytest.raises(ConfigError, match="unknown engine"):
+        GrainPipeline(256, 144, 10, 0, engine="tiled")
     src = tmp_path / "in.yuv"
     src.write_bytes(bytes(256 * 144 * 3))
     with pytest.raises(RuntimeError, match="CUDA"):

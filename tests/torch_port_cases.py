@@ -69,6 +69,26 @@ def golden_cli_args(case, inp, out):
     return [rebase(a) for a in cli_args(case, inp, out)]
 
 
+def golden_output(cli_main, entry, engine, tmpdir):
+    """Run one golden CLI case (an entry of tests/golden/checksums.json)
+    through ``cli_main`` with ``--engine engine``; returns the output bytes.
+    Inputs are generated once per geometry into ``tmpdir``."""
+    from gen_golden import FMT_NAMES
+    from gen_input import make_input_yuv
+    case = entry["case"]
+    inp = os.path.join(tmpdir, "in_%dx%d_%db_%s_%df.yuv" % (
+        case["w"], case["h"], case["depth"], FMT_NAMES[case["fmt"]],
+        case["in_frames"]))
+    if not os.path.exists(inp):
+        make_input_yuv(inp, case["w"], case["h"], case["depth"], case["fmt"],
+                       case["in_frames"])
+    out = os.path.join(tmpdir, f"out_{engine}.yuv")
+    assert cli_main(["vfgs-torch", "--engine", engine]
+                    + golden_cli_args(case, inp, out)) == 0
+    with open(out, "rb") as f:
+        return f.read()
+
+
 def regs_for(pkg, kind, depth, csub):
     """Register file after FW init for one grid case (cf. test_fast_engine)."""
     cfgmod, fw = mod(pkg, "models.config"), mod(pkg, "models.fw")

@@ -48,9 +48,10 @@ def help_text(name: str) -> str:
         "   --help                          Display this page\n\n"
         "Extensions over the reference vfgs:\n"
         "   --batch        <value>          Frames per device dispatch [4]\n"
-        "   --engine       <name>           Compute engine: natural (CUDA kernel), ref or\n"
-        "                                   fast (plain torch) [auto: natural on CUDA,\n"
-        "                                   ref elsewhere]\n"
+        "   --engine       <name>           Compute engine: natural (CUDA kernel), pallas\n"
+        "                                   (tiled engine: CUDA kernel on a card, plain\n"
+        "                                   torch elsewhere), ref or fast (plain torch)\n"
+        "                                   [auto: natural on CUDA, ref elsewhere]\n"
         "   --grain-offset <value>          Global grain-state frame offset (use with -s\n"
         "                                   for bit-exact frame sharding) [0]\n"
         "   --profile      <dir>            Write a torch.profiler trace to <dir>/trace.json\n"

@@ -38,23 +38,36 @@ def _nvcc() -> str:
                        "to build the CUDA kernels")
 
 
-def _build(name: str) -> str:
-    """Compile csrc/<name>.cu to build/kernels/lib<name>.so if it is missing
-    or older than its source; returns the library's path."""
-    src = os.path.join(_PKG, "csrc", f"{name}.cu")
-    so = os.path.join(_BUILD_DIR, f"lib{name}.so")
-    if os.path.exists(so) and os.path.getmtime(so) > os.path.getmtime(src):
-        return so
-    os.makedirs(_BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.tmp{os.getpid()}"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
-    build_logs[name] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed to build {src} "
-                           f"(exit {proc.returncode}):\n{build_logs[name]}")
-    os.replace(tmp, so)
-    return so
+def _paths(name: str) -> tuple[str, str]:
+    return (os.path.join(_PKG, "csrc", f"{name}.cu"),
+            os.path.join(_BUILD_DIR, f"lib{name}.so"))
+
+
+def build(names) -> None:
+    """Compile each csrc/<name>.cu to build/kernels/lib<name>.so that is
+    missing or older than its source: one nvcc per source, all started
+    together, then wait for every one.  Raises if any build fails."""
+    jobs = []
+    for name in names:
+        src, so = _paths(name)
+        if os.path.exists(so) and os.path.getmtime(so) > os.path.getmtime(src):
+            continue
+        os.makedirs(_BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.tmp{os.getpid()}"
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, src, so, tmp, proc))
+    failed = []
+    for name, src, so, tmp, proc in jobs:
+        build_logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed to build {src} (exit "
+                          f"{proc.returncode}):\n{build_logs[name]}")
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -62,7 +75,8 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(_build(name))
+            build([name])
+            lib = ctypes.CDLL(_paths(name)[1])
             _bind(name, lib)
             _libs[name] = lib
         return lib
@@ -77,4 +91,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp, vp, vp, vp, vp,     # lat, pattern, slut, plut, scalars
             i, i, i,                # frames, rows, cols
             i, i, i, i, i,          # c, csubx, csuby, bs, zero_scale
+            vp]                     # stream
+    elif name == "grain_tiled":
+        lib.vfg_grain_tiled.restype = i
+        lib.vfg_grain_tiled.argtypes = [
+            vp, vp, i,              # in, out, elem_bytes
+            vp, vp, vp, vp,         # widx, sign, widxu, signu
+            vp, vp, i,              # segs, segd, nseg
+            vp, vp,                 # win, win_up
+            vp, vp, vp,             # scale_shift, imin, imax
+            i, i, i,                # frames, rows, cols
+            i, i, i, i,             # bh, bw, n_ov, bs
             vp]                     # stream

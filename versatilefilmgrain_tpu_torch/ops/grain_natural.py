@@ -99,6 +99,24 @@ def _check_plane(name, p, shape, dtype, device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_batch(y, u, v, bases, tables, height, width):
+    """Check a batch's padded planes against its geometry and frame count
+    (both engines' batched steps); returns (R, C)."""
+    F, Hp, Wp = y.shape
+    R, C = -(-height // 16), -(-width // 16)
+    if (Hp, Wp) != (R * 16, C * 16):
+        raise ValueError(f"luma plane {Hp}x{Wp} is not {height}x{width} "
+                         f"padded to whole 16x16 blocks")
+    cshape = (F, R * tables["bh_c"], C * tables["bw_c"])
+    for name, p in (("u", u), ("v", v)):
+        _check_plane(name, p, cshape, y.dtype, y.device)
+    if y.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"planes must be uint8 or uint16, got {y.dtype}")
+    if len(bases) != F:
+        raise ValueError(f"{len(bases)} bases for {F} frames")
+    return R, C
+
+
 def grain_plane_cuda(pix, lat32, tables: dict, *, c: int, csubx: int,
                      csuby: int, bs: int) -> torch.Tensor:
     """Launch csrc/grain_natural.cu on one plane of F frames; returns the new
@@ -152,18 +170,7 @@ def add_grain_batch_natural(y, u, v, bases, bases_up, tables: dict, *,
     """
     del bases_up
     dev = y.device
-    F, Hp, Wp = y.shape
-    R, C = -(-height // 16), -(-width // 16)
-    if (Hp, Wp) != (R * 16, C * 16):
-        raise ValueError(f"luma plane {Hp}x{Wp} is not {height}x{width} "
-                         f"padded to whole 16x16 blocks")
-    cshape = (F, R * tables["bh_c"], C * tables["bw_c"])
-    for name, p in (("u", u), ("v", v)):
-        _check_plane(name, p, cshape, y.dtype, dev)
-    if y.dtype not in (torch.uint8, torch.uint16):
-        raise ValueError(f"planes must be uint8 or uint16, got {y.dtype}")
-    if len(bases) != F:
-        raise ValueError(f"{len(bases)} bases for {F} frames")
+    _check_batch(y, u, v, bases, tables, height, width)
     if dev.type == "cpu":
         return add_grain_batch_plain(y, u, v, bases, tables, bs=bs,
                                      csubx=csubx, csuby=csuby)

@@ -21,6 +21,7 @@ from .models.hw import HwRegs
 from .ops import lfsr
 from .ops.grain_natural import (add_grain_batch_natural,
                                 add_grain_batch_plain, natural_tables)
+from .ops.grain_pallas import add_grain_batch_pallas, pallas_tables
 from .utils import parsers, yuv
 from .utils.parsers import ConfigError, _check
 
@@ -181,6 +182,8 @@ class GrainPipeline:
         ``device``: where frames are grained; defaults to ``cuda`` when a
         card is present and ``cpu`` otherwise.  ``engine``: ``natural`` is
         the CUDA kernel (ops/grain_natural.py) and needs a CUDA device;
+        ``pallas`` is the tiled engine (ops/grain_pallas.py): its CUDA
+        kernel on a CUDA device, its plain strip function on the CPU;
         ``ref`` and ``fast`` are the plain torch engine on ``device``;
         ``auto`` picks ``natural`` on CUDA and ``ref`` elsewhere."""
         if depth not in (8, 10):
@@ -198,9 +201,7 @@ class GrainPipeline:
         self.device = torch.device(device)
         if engine == "auto":
             engine = "natural" if self.device.type == "cuda" else "ref"
-        if engine == "pallas":
-            raise ConfigError("engine 'pallas' is not ported yet")
-        if engine not in ("natural", "fast", "ref"):
+        if engine not in ("natural", "pallas", "fast", "ref"):
             raise ConfigError(f"unknown engine {engine!r}")
         if engine == "natural" and self.device.type != "cuda":
             raise RuntimeError("engine 'natural' is the CUDA kernel and needs "
@@ -224,7 +225,7 @@ class GrainPipeline:
         # the seed, which we replicate when grain_offset == 0).  This is what
         # makes disjoint frame shards concatenate exactly.
         self.grain_offset = grain_offset
-        self._tables_cache = None  # (generation, device tables)
+        self._tables_cache = None  # ((engine, generation), device tables)
         self._cfg_generation = 0
         self._pbuf = None
         self._R = -(-height // 16)
@@ -258,20 +259,21 @@ class GrainPipeline:
 
     def _tables(self) -> dict:
         """Device tables of the current config, uploaded once per config."""
-        if (self._tables_cache is None
-                or self._tables_cache[0] != self._cfg_generation):
-            self._tables_cache = (self._cfg_generation,
-                                  natural_tables(self.regs, self.device))
+        key = (self.engine, self._cfg_generation)
+        if self._tables_cache is None or self._tables_cache[0] != key:
+            make = pallas_tables if self.engine == "pallas" else natural_tables
+            self._tables_cache = (key, make(self.regs, self.device))
         return self._tables_cache[1]
 
-    def _step(self, y, u, v, bases, tables):
+    def _step(self, y, u, v, bases, bases_up, tables):
         """Grain a batch of padded device planes with the selected engine."""
         kw = dict(bs=self.regs.bs, csubx=self.regs.csubx,
                   csuby=self.regs.csuby)
-        if self.engine == "natural":
-            return add_grain_batch_natural(y, u, v, bases, None, tables,
-                                           height=self.height,
-                                           width=self.width, **kw)
+        if self.engine in ("natural", "pallas"):
+            step = (add_grain_batch_natural if self.engine == "natural"
+                    else add_grain_batch_pallas)
+            return step(y, u, v, bases, bases_up, tables, height=self.height,
+                        width=self.width, **kw)
         return add_grain_batch_plain(y, u, v, bases, tables, **kw)
 
     def pop_cfg(self, frame: int) -> None:
@@ -362,10 +364,10 @@ class GrainPipeline:
             padded = (yuv.pad_plane(y, R * 16, C * 16),
                       yuv.pad_plane(u, R * bhc, C * bwc),
                       yuv.pad_plane(v, R * bhc, C * bwc))
-        base, _ = self.frame_bases(n)
+        base, base_up = self.frame_bases(n)
         dev = [torch.tensor(p)[None].to(self.device) for p in padded]
         out = [o[0].cpu().numpy()
-               for o in self._step(*dev, [base], self._tables())]
+               for o in self._step(*dev, [base], [base_up], self._tables())]
         if self._has_pad_leak():
             # Carry the grained padding into the next frame's buffer (a
             # copy: the frames returned below must not alias it).
@@ -530,11 +532,12 @@ class GrainPipeline:
                                                  shapes):
                     view[i] = yuv.pad_plane(plane, ph, pw)
             t_read += _time.perf_counter() - t0
-            bases = [self.frame_bases(n0 + i)[0] for i in range(count)]
+            bases, bases_up = zip(*(self.frame_bases(n0 + i)
+                                    for i in range(count)))
             dev = [h.to(self.device, non_blocking=True) for h in host]
             # resolve the tables NOW: a later prepare() may pop the next
             # config before this batch runs
-            return dev, bases, self._tables(), count
+            return dev, bases, bases_up, self._tables(), count
 
         def start_download(out):
             """Enqueue the device-to-host copy of a batch's outputs."""
@@ -567,9 +570,9 @@ class GrainPipeline:
         try:
             cur = prepare(0)
             while cur is not None:
-                dev, bases, tables, count = cur
+                dev, bases, bases_up, tables, count = cur
                 t0 = _time.perf_counter()
-                out = self._step(*dev, bases, tables)
+                out = self._step(*dev, bases, bases_up, tables)
                 # Start this batch's copy back now; flush() waits for it one
                 # batch later, after the next batch has been staged.
                 done = start_download(out)
