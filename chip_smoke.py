@@ -6,9 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, one result line each:
   1. device   -- the card's name and power limit;
-  2. build    -- nvcc builds csrc/grain_natural.cu and csrc/grain_tiled.cu,
-                 both at once; ptxas' register, shared memory and spill
-                 report;
+  2. build    -- nvcc builds csrc/grain_natural.cu, csrc/grain_tiled.cu and
+                 csrc/expand_words.cu, all at once; ptxas' register, shared
+                 memory and spill report;
   3. kernel   -- the kernel against its plain torch version on the card at
                  3840x2160 10-bit 4:2:0, default config, one batch of 8
                  frames; exact equality on all planes; both timed with CUDA
@@ -28,8 +28,22 @@ Phases, one result line each:
   9. tiled golden   -- the 48 golden CLI cases through --engine pallas;
  10. tiled cli 4K   -- the CLI with --engine pallas --batch 8 on phase 6's
                  file (the tiled engine's path; launches counted), output
-                 byte-identical to phase 6's.
-Then one JSON line describing both kernels, and as the last line
+                 byte-identical to phase 6's;
+ 11. words 4K -- the lane-word kernel (K2, csrc/expand_words.cu) against its
+                 plain version at phase 3's shape, exact on all three
+                 planes; both timed;
+ 12. stream 4K -- add_grain_batch_natural with word_expand "xla" (lane words
+                 from the plain expansion) and "pallas" (from K2) == the
+                 lattice path == the plain version; each step and K1 alone
+                 on each input timed; launches of a "pallas" step counted
+                 (K2 once, K1 three times);
+ 13. shard 4K -- make_grain_step on the one card with meshes (1, 1), (1, 5)
+                 and (2, 3) in every word mode == the unsharded K1 output;
+                 K1 boot launches and K2 launches counted;
+ 14. shard geometry -- the same at 128x256 over the dryrun_multichip sweep
+                 (SEI-FF, AFGS1 x 4:2:0, 4:4:4 luma-only, 4:2:2, 8-bit x
+                 grain offset 0 and 3), meshes (2, 4) and (1, 8).
+Then one JSON line describing the three kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  It needs a CUDA device and the rest of the repository.
 """
@@ -216,7 +230,7 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    sources = ("grain_natural", "grain_tiled")
+    sources = ("grain_natural", "grain_tiled", "expand_words")
     _kernels.build(sources)
     for name in sources:
         _kernels.load(name)
@@ -442,6 +456,179 @@ def main() -> int:
           f"{twall:.3f} s with file I/O (card {card})")
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
+    # 11. K2 at the main path's shape
+    from versatilefilmgrain_tpu_torch.parallel import mesh as pmesh
+    kcounter = grain_natural.expand_words_cuda
+    planes = random_batch(pipe, F, 5, dev)
+    bases, bases_up = (list(b) for b in
+                       zip(*(pipe.frame_bases(f) for f in frame_ids)))
+    lat = grain_natural._lattice(bases, planes[0])
+    blk = [grain_natural._block_words(lat, c, regs.csubx, regs.csuby)
+           for c in range(3)]
+    wblks, bws = [b for b, _ in blk], [bw for _, bw in blk]
+    lanes_k = grain_natural.expand_words_cuda(wblks, bws)
+    lanes_p = grain_natural.expand_words_plain(wblks, bws)
+    torch.cuda.synchronize()
+    err_k2 = max(int((a - b).abs().max()) for a, b in zip(lanes_k, lanes_p))
+    check(all(a.shape == b.shape for a, b in zip(lanes_k, lanes_p))
+          and err_k2 == 0, f"4K K2 differs from its plain version (max "
+          f"|err| {err_k2})")
+    ms_w = [cuda_ms(lambda: grain_natural.expand_words_cuda(wblks, bws), 50),
+            cuda_ms(lambda: grain_natural.expand_words_plain(wblks, bws), 20),
+            cuda_ms(lambda: grain_natural.expand_words_cuda(wblks, bws), 50),
+            cuda_ms(lambda: grain_natural.expand_words_plain(wblks, bws), 20)]
+    wbytes = sum(w.numel() * 4 for w in lanes_k + wblks)
+    k2_ms, k2_plain_ms = min(ms_w[0], ms_w[2]), min(ms_w[1], ms_w[3])
+    phase("words 4K", f"{W}x{H} 4:2:0 batch {F}: K2 == plain expansion on "
+          f"Y, U, V lane words {[tuple(w.shape) for w in lanes_k]} (max "
+          f"|err| {err_k2}); per step (CUDA events; runs K2, plain, K2, "
+          f"plain): K2 {ms_w[0]:.4f} / {ms_w[2]:.4f} ms, plain "
+          f"{ms_w[1]:.4f} / {ms_w[3]:.4f} ms; {wbytes / 1e6:.1f} MB moved = "
+          f"{wbytes / (k2_ms * 1e-3) / 1e12:.3f} TB/s; card {card}")
+
+    # 12. the lane-word input of K1 at the main path's shape
+    want = grain_natural.add_grain_batch_plain(*planes, bases, tables, **geo)
+    outs = {}
+    for mode in (None, "xla", "pallas"):
+        counter.launches = kcounter.launches = 0
+        outs[mode] = grain_natural.add_grain_batch_natural(
+            *planes, bases, bases_up, tables, height=H, width=W,
+            word_expand=mode, **geo)
+        torch.cuda.synchronize()
+        check((counter.launches, kcounter.launches)
+              == (3, int(mode == "pallas")),
+              f"word_expand={mode}: {counter.launches} K1 and "
+              f"{kcounter.launches} K2 launches, not 3 and "
+              f"{int(mode == 'pallas')}")
+        err = max(int((a.int() - b.int()).abs().max())
+                  for a, b in zip(outs[mode], want))
+        check(err == 0, f"4K word_expand={mode} differs from the plain "
+              f"version (max |err| {err})")
+    stream_launches = (counter.launches, kcounter.launches)
+    lat32 = grain_natural._as_int32_words(lat)
+
+    def step(mode):
+        return lambda: grain_natural.add_grain_batch_natural(
+            *planes, bases, bases_up, tables, height=H, width=W,
+            word_expand=mode, **geo)
+
+    def k1(words):
+        return lambda: [grain_natural.grain_plane_cuda(p, w, tables, c=c,
+                                                       **geo)
+                        for c, (p, w) in enumerate(zip(planes, words))]
+
+    order = [("lattice step", step(None)), ("xla step", step("xla")),
+             ("pallas step", step("pallas")),
+             ("K1 lattice", k1([lat32] * 3)), ("K1 lanes", k1(lanes_k))]
+    times = {name: [] for name, _ in order}
+    for seq in (order, order[::-1]):
+        for name, fn in seq:
+            times[name].append(cuda_ms(fn, 20))
+    phase("stream 4K", f"word_expand None (lattice), xla, pallas == plain "
+          f"version on Y, U, V (max |err| 0); a pallas step launched K2 "
+          f"{stream_launches[1]}x and K1 {stream_launches[0]}x")
+    phase("stream 4K", "per step (CUDA events, warmed up; each in turn, then "
+          "in reverse): " + "; ".join(
+              f"{n} {a:.4f} / {b:.4f} ms" for n, (a, b) in times.items())
+          + f"; card {card}")
+    del lanes_k, lanes_p, wblks, blk
+
+    # 13. the sharded step on the one card
+    nat = outs[None]
+    shard_counts = {}
+    for shape in ((1, 1), (1, 5), (2, 3)):
+        n = shape[0] * shape[1]
+        mesh = pmesh.make_mesh(*shape, [dev] * n)
+        for mode in ("kernel", "xla", "pallas"):
+            run = pmesh.make_grain_step(mesh, height=H, width=W,
+                                        engine="natural", tables=tables,
+                                        word_expand=mode, **geo)
+            counter.launches = counter.boot_launches = kcounter.launches = 0
+            got = run(*planes, bases, bases_up)
+            torch.cuda.synchronize()
+            counts = (counter.launches, counter.boot_launches,
+                      kcounter.launches)
+            shard_counts[shape, mode] = counts
+            expect = (3 * n, 3 * shape[0] * (shape[1] - 1),
+                      n if mode == "pallas" else 0)
+            check(counts == expect, f"mesh {shape} {mode}: launches (K1, "
+                  f"K1 boot, K2) {counts}, expected {expect}")
+            for c, (a, b) in enumerate(zip(got, nat)):
+                check(torch.equal(a, b), f"mesh {shape} {mode} plane {c} "
+                      f"differs from the unsharded K1 output")
+    run = pmesh.make_grain_step(pmesh.make_mesh(2, 3, [dev] * 6), height=H,
+                                width=W, engine="natural", tables=tables,
+                                word_expand="pallas", **geo)
+    ms_sh = cuda_ms(lambda: run(*planes, bases, bases_up), 10)
+    mesh_k2_launches = shard_counts[(2, 3), "pallas"][2]
+    phase("shard 4K", f"meshes (1, 1), (1, 5), (2, 3) x word_expand kernel, "
+          f"xla, pallas == unsharded K1 on Y, U, V; launches (K1, K1 boot, "
+          f"K2): " + ", ".join(f"{s} {m} {c}" for (s, m), c in
+                                shard_counts.items())
+          + f"; (2, 3) pallas step {ms_sh:.4f} ms; card {card}")
+    del planes, lat, lat32, want, outs, nat, got
+
+    # 14. sharded step, the dryrun_multichip sweep at a small size
+    from torch_port_cases import afgs1_cfg, frame_bases
+    from versatilefilmgrain_tpu_torch.models import config as cfgmod
+    from versatilefilmgrain_tpu_torch.models import fw
+    from versatilefilmgrain_tpu_torch.models.hw import HwRegs
+    sh, sw, nf = 128, 256, 8
+    srows, scols = sh // 16, sw // 16
+    combos = [("sei_ff", (2, 2), 10), ("sei_ff", (1, 1), 10),
+              ("afgs1", (2, 2), 10), ("afgs1", (1, 1), 10),
+              ("sei_ff", (2, 1), 10), ("sei_ff", (2, 2), 8)]
+    ncase = 0
+    for family, csub, depth in combos:
+        sregs = HwRegs()
+        sregs.set_depth(depth)
+        sregs.set_chroma_subsampling(*csub)
+        if family == "sei_ff":
+            sei = cfgmod.default_sei()
+            if csub == (1, 1):
+                sei.comp_model_present_flag = [1, 0, 0]
+            fw.init_sei(sei, sregs)
+        else:
+            a = afgs1_cfg("versatilefilmgrain_tpu_torch")
+            if csub != (2, 2):
+                a.num_cb_points = a.num_cr_points = 0
+            fw.init_afgs1(a, sregs)
+        stables = grain_natural.natural_tables(sregs, dev)
+        sgeo = dict(bs=depth - 8, csubx=csub[0], csuby=csub[1])
+        rng = np.random.default_rng(ncase)
+        dt = np.uint8 if depth == 8 else np.uint16
+        splanes = [torch.from_numpy(rng.integers(0, 1 << depth, (nf, h, w))
+                                    .astype(dt)).to(dev)
+                   for h, w in ((sh, sw), (sh // csub[1], sw // csub[0]),
+                                (sh // csub[1], sw // csub[0]))]
+        for off in (0, 3):
+            sb, sbu = frame_bases("versatilefilmgrain_tpu_torch",
+                                  sregs.seed_state, srows, scols,
+                                  range(off, off + nf))
+            swant = grain_natural.add_grain_batch_plain(*splanes, sb,
+                                                        stables, **sgeo)
+            sk1 = grain_natural.add_grain_batch_natural(
+                *splanes, sb, sbu, stables, height=sh, width=sw, **sgeo)
+            for shape in ((2, 4), (1, 8)):
+                mesh = pmesh.make_mesh(*shape, [dev] * 8)
+                for mode in ("kernel", "xla", "pallas"):
+                    got = pmesh.make_grain_step(
+                        mesh, height=sh, width=sw, engine="natural",
+                        tables=stables, word_expand=mode, **sgeo)(
+                            *splanes, sb, sbu)
+                    torch.cuda.synchronize()
+                    for c in range(3):
+                        check(torch.equal(got[c], sk1[c])
+                              and torch.equal(got[c], swant[c]),
+                              f"{family} {csub} {depth}-bit offset {off} "
+                              f"mesh {shape} {mode} plane {c}: sharded "
+                              f"differs from unsharded")
+                    ncase += 1
+        phase("shard geometry", f"{family} csub {csub} {depth}-bit, offsets "
+              f"0 and 3, meshes (2, 4) and (1, 8), word_expand kernel, xla, "
+              f"pallas: sharded == unsharded K1 == plain (max |err| 0)")
+    phase("shard geometry", f"{ncase} cases passed")
+
     print(json.dumps({"kernels": [{
         "name": "grain_natural", "route": "cuda",
         "source": "versatilefilmgrain_tpu_torch/csrc/grain_natural.cu",
@@ -452,7 +639,12 @@ def main() -> int:
         "source": "versatilefilmgrain_tpu_torch/csrc/grain_tiled.cu",
         "replaces": "versatilefilmgrain_tpu/ops/grain_pallas.py:189",
         "launches": tlaunches, "max_abs_err": max(terr, terr_n),
-        "ms": tiled_ms, "plain_ms": tiled_plain_ms}]}), flush=True)
+        "ms": tiled_ms, "plain_ms": tiled_plain_ms}, {
+        "name": "expand_words", "route": "cuda",
+        "source": "versatilefilmgrain_tpu_torch/csrc/expand_words.cu",
+        "replaces": "versatilefilmgrain_tpu/ops/grain_natural.py:801",
+        "launches": mesh_k2_launches, "max_abs_err": err_k2,
+        "ms": k2_ms, "plain_ms": k2_plain_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,4 +1,5 @@
-"""The torch port's CUDA kernels against their plain versions, on the card.
+"""The torch port's CUDA kernels against their plain versions, on the card:
+K1 (lattice and lane-word input, shard boot), K2 and K3.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one (the kernel has no CPU mode; the CPU tests hold the plain
@@ -100,3 +101,100 @@ def test_tiled_launch_counter(cuda_device):
     before = grain_pallas.plane_tiled_cuda.launches
     _tiled_kernel_plain_natural("sei_ff", 10, (2, 2), cuda_device)
     assert grain_pallas.plane_tiled_cuda.launches == before + 3
+
+
+def test_expand_words_matches_plain(cuda_device):
+    """K2 (csrc/expand_words.cu) == its plain version, one launch for every
+    plane: 4:2:0 (bw 16, 8, 8) and a 4:4:4 pair (bw 16, 16)."""
+    rng = np.random.default_rng(5)
+    for bws in ((16, 8, 8), (16, 16)):
+        blk = [torch.from_numpy(rng.integers(0, 2048, (3, R, W // bw))
+                                .astype(np.int32)).to(cuda_device)
+               for bw in bws]
+        before = grain_natural.expand_words_cuda.launches
+        got = grain_natural.expand_words_cuda(blk, list(bws))
+        want = grain_natural.expand_words_plain(blk, list(bws))
+        torch.cuda.synchronize()
+        assert grain_natural.expand_words_cuda.launches == before + 1
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g, w), bws
+
+
+@pytest.mark.parametrize("kind,depth,csub", [
+    ("sei_ff", 10, (2, 2)), ("sei_ar", 8, (2, 1)), ("afgs1", 10, (1, 1))])
+def test_stream_matches_lattice(kind, depth, csub, cuda_device):
+    """K1 fed lane words ("xla": plain expansion, "pallas": K2) == K1 fed
+    the lattice == the plain version."""
+    regs = regs_for(TORCH_PKG, kind, depth, csub)
+    tables = grain_natural.natural_tables(regs, cuda_device)
+    bases, _ = frame_bases(TORCH_PKG, regs.seed_state, R, C, (0, 1, 3))
+    planes = [torch.from_numpy(p).to(cuda_device) for p in
+              random_planes(47, depth, R, C, csub, frames=3)]
+    geo = dict(bs=depth - 8, csubx=csub[0], csuby=csub[1])
+    want = grain_natural.add_grain_batch_plain(*planes, bases, tables, **geo)
+    for mode in (None, "xla", "pallas"):
+        k2 = grain_natural.expand_words_cuda.launches
+        got = grain_natural.add_grain_batch_natural(
+            *planes, bases, None, tables, height=H, width=W,
+            word_expand=mode, **geo)
+        torch.cuda.synchronize()
+        assert grain_natural.expand_words_cuda.launches == \
+            k2 + (mode == "pallas")
+        for c in range(3):
+            assert torch.equal(got[c], want[c]), f"{kind} {mode} plane {c}"
+
+
+@pytest.mark.parametrize("mode", ["kernel", "xla", "pallas"])
+@pytest.mark.parametrize("csub", [(2, 2), (2, 1)])
+def test_shard_boot_matches_unsharded(mode, csub, cuda_device):
+    """The sharded step on one card, (2, 3) mesh: tile shards below the
+    frame top boot K1 from their upper lattice row, and the output equals
+    the unsharded K1 output."""
+    from versatilefilmgrain_tpu_torch.parallel import mesh as pmesh
+    regs = regs_for(TORCH_PKG, "sei_ff", 10, csub)
+    tables = grain_natural.natural_tables(regs, cuda_device)
+    bases, bases_up = frame_bases(TORCH_PKG, regs.seed_state, R, C,
+                                  (0, 1, 2, 5))
+    planes = [torch.from_numpy(p).to(cuda_device) for p in
+              random_planes(53, 10, R, C, csub, frames=4)]
+    geo = dict(bs=2, csubx=csub[0], csuby=csub[1])
+    want = grain_natural.add_grain_batch_natural(
+        *planes, bases, bases_up, tables, height=H, width=W, **geo)
+    step = pmesh.make_grain_step(
+        pmesh.make_mesh(2, 3, [cuda_device] * 6), height=H, width=W,
+        engine="natural", tables=tables, word_expand=mode, **geo)
+    boots = grain_natural.grain_plane_cuda.boot_launches
+    got = step(*planes, bases, bases_up)
+    torch.cuda.synchronize()
+    # 2 data x 2 lower tile shards x 3 planes booted
+    assert grain_natural.grain_plane_cuda.boot_launches == boots + 12
+    for c in range(3):
+        assert torch.equal(got[c], want[c]), f"{mode} csub{csub} plane {c}"
+
+
+@pytest.mark.parametrize("mode", ["kernel", "xla", "pallas"])
+@pytest.mark.parametrize("blend0", [True, False])
+def test_shard_body_matches_plain(mode, blend0, cuda_device):
+    """add_grain_shard_natural on the card == on the CPU (its plain
+    version), the shard's first row booted or not.  Rows of states_up below
+    row 0 hold junk: neither path may read them."""
+    regs = regs_for(TORCH_PKG, "afgs1", 10, (2, 2))
+    rng = np.random.default_rng(59)
+    states = torch.from_numpy(rng.integers(0, 1 << 32, (2, 4, C),
+                                           dtype=np.int64))
+    states_up = torch.from_numpy(rng.integers(0, 1 << 32, (2, 4, C),
+                                              dtype=np.int64))
+    planes = [torch.from_numpy(p) for p in
+              random_planes(61, 10, 4, C, (2, 2), frames=2)]
+    ov = [blend0, True, True, True]
+    geo = dict(bs=2, csubx=2, csuby=2, word_expand=mode)
+    want = grain_natural.add_grain_shard_natural(
+        *planes, states, states_up, ov,
+        grain_natural.natural_tables(regs, "cpu"), **geo)
+    got = grain_natural.add_grain_shard_natural(
+        *(p.to(cuda_device) for p in planes), states.to(cuda_device),
+        states_up.to(cuda_device), ov,
+        grain_natural.natural_tables(regs, cuda_device), **geo)
+    torch.cuda.synchronize()
+    for c in range(3):
+        assert torch.equal(got[c].cpu(), want[c]), f"{mode} plane {c}"

@@ -88,7 +88,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.vfg_grain_plane.restype = i
         lib.vfg_grain_plane.argtypes = [
             vp, vp, i,              # in, out, elem_bytes
-            vp, vp, vp, vp, vp,     # lat, pattern, slut, plut, scalars
+            vp, i, vp, i,           # words, lane, up0, blend0
+            vp, vp, vp, vp,         # pattern, slut, plut, scalars
             i, i, i,                # frames, rows, cols
             i, i, i, i, i,          # c, csubx, csuby, bs, zero_scale
             vp]                     # stream
@@ -102,4 +103,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp, vp, vp,             # scale_shift, imin, imax
             i, i, i,                # frames, rows, cols
             i, i, i, i,             # bh, bw, n_ov, bs
+            vp]                     # stream
+    elif name == "expand_words":
+        lib.vfg_expand_words.restype = i
+        lib.vfg_expand_words.argtypes = [
+            i, i,                   # planes, rows
+            vp, vp, i, i,           # in0, out0, cols0, bw0
+            vp, vp, i, i,           # in1, out1, cols1, bw1
+            vp, vp, i, i,           # in2, out2, cols2, bw2
             vp]                     # stream

@@ -35,35 +35,64 @@ def _round_shift(a, s):
     return (a + (1 << (s - 1))) >> s
 
 
+def lane_offsets(states, c: int, csubx: int, csuby: int):
+    """Per-lane ``(sign, col, oy)`` from (..., C) lattice words: each block's
+    offsets repeated over its bw lanes, ``col = ox + x % bw`` (the pattern
+    column of lane x).  All int32 tensors of shape (..., C*bw)."""
+    bw = 16 // (csubx if c else 1)
+    s, ox, oy = block_offsets(states, c, csubx, csuby)
+    col = ox[..., None] + torch.arange(bw, dtype=torch.int32,
+                                       device=states.device)
+    return (s.repeat_interleave(bw, dim=-1), col.flatten(-2),
+            oy.repeat_interleave(bw, dim=-1))
+
+
 def plane_grain(pix, states, states_up, pattern, slut, plut, scale_shift,
-                imin, imax, *, c: int, csubx: int, csuby: int, bs: int):
+                imin, imax, ov_mask=None, *, c: int, csubx: int, csuby: int,
+                bs: int):
     """Add grain to one plane of F frames.
 
     pix: (F, Hp, Wp) uint8/uint16, padded to (R*bh, C*bw).
     states/states_up: (F, R, C) int64 block lattices (current / upper block
-    row; row 0 of ``states_up`` is never read, a frame's first block row
-    does not blend).
+    row; row r of ``states_up`` is read only where ``ov_mask[r]``).
     pattern: (8, 64, 64) int8 -- this plane class's patterns.
     slut/plut: (256,) integer tensors -- scale / pattern LUTs of component c.
     scale_shift/imin/imax: ints or 0-d integer tensors (config registers).
+    ov_mask: (R,) bool -- which block rows blend with the row above;
+    ``None`` is ``arange(R) > 0`` (a frame's first block row does not
+    blend, vfgs_hw.c overlap applies for y > 15 only).  A tile shard's
+    first row passes True.
     Returns (F, Hp, Wp) tensors of pix's dtype.
+    """
+    geo = dict(c=c, csubx=csubx, csuby=csuby)
+    return plane_grain_lanes(pix, lane_offsets(states, **geo),
+                             lane_offsets(states_up, **geo), pattern, slut,
+                             plut, scale_shift, imin, imax, ov_mask, bs=bs,
+                             **geo)
+
+
+def plane_grain_lanes(pix, lanes, lanes_up, pattern, slut, plut, scale_shift,
+                      imin, imax, ov_mask=None, *, c: int, csubx: int,
+                      csuby: int, bs: int):
+    """:func:`plane_grain` on offsets already decoded per lane.
+
+    ``lanes``/``lanes_up``: ``(sign, col, oy)`` triples of (F, R, Wp)
+    tensors for the current and the upper block row, from
+    :func:`lane_offsets` (lattice words) or from the lane words of
+    ops/grain_natural.py (``lane_word_offsets``).
     """
     F, Hp, Wp = pix.shape
     dev = pix.device
-    subx = csubx if c else 1
     suby = csuby if c else 1
-    bh, bw = 16 // suby, 16 // subx
-    R, C = Hp // bh, Wp // bw
+    bh = 16 // suby
+    R = Hp // bh
     # Vertical-overlap lines per block: luma-lines j==0 and j==1
     # (vfgs_hw.c:175-188); for suby==2 the j==1 line is skipped entirely.
     n_ov = 1 if suby == 2 else 2
     oc1 = torch.tensor([20] if suby == 2 else [12, 24], dtype=torch.int32,
-                       device=dev).view(1, 1, n_ov, 1, 1)
+                       device=dev).view(1, 1, n_ov, 1)
     oc2 = torch.tensor([20] if suby == 2 else [24, 12], dtype=torch.int32,
-                       device=dev).view(1, 1, n_ov, 1, 1)
-
-    s, ox, oy = block_offsets(states, c, csubx, csuby)
-    su, oxu, oyu = block_offsets(states_up, c, csubx, csuby)
+                       device=dev).view(1, 1, n_ov, 1)
 
     x = pix.to(torch.int32)
     intensity = ((x >> bs) & 0xFF).long()
@@ -71,26 +100,31 @@ def plane_grain(pix, states, states_up, pattern, slut, plut, scale_shift,
     sc = slut.to(torch.int32)[intensity]      # scale (vfgs_hw.c:239)
 
     pat = pattern.reshape(-1)
-    pi5 = pi.view(F, R, bh, C, bw)
-    jj = torch.arange(bh, device=dev).view(1, 1, bh, 1, 1)
-    ii = torch.arange(bw, device=dev).view(1, 1, 1, 1, bw)
+    pi4 = pi.view(F, R, bh, Wp)
+    jj = torch.arange(bh, device=dev).view(1, 1, bh, 1)
 
-    def window(p, sgn, ox_, oy_, rows):
-        """s * pattern[p, oy + rows, ox + x%bw] per pixel of the strip."""
-        idx = ((p * 64 + oy_[:, :, None, :, None] + rows) * 64
-               + ox_[:, :, None, :, None] + ii)
-        return pat[idx].to(torch.int32) * sgn[:, :, None, :, None]
+    def window(p, lanes_, rows):
+        """s * pattern[p, oy + rows, col] per pixel of the strip."""
+        sgn, col, oy = (t[:, :, None, :] for t in lanes_)
+        return pat[(p * 64 + oy + rows) * 64 + col].to(torch.int32) * sgn
 
-    P = window(pi5, s, ox, oy, jj)            # oy += j/suby (vfgs_hw.c:197)
+    P = window(pi4, lanes, jj)                # oy += j/suby (vfgs_hw.c:197)
     # Vertical overlap (vfgs_hw.c:223-229): oy_up += (16+j)/suby = bh + j.
-    Pup = window(pi5[:, :, :n_ov], su, oxu, oyu, jj[:, :, :n_ov] + bh)
+    Pup = window(pi4[:, :, :n_ov], lanes_up, jj[:, :, :n_ov] + bh)
     blend = _round_shift(P[:, :, :n_ov] * oc1 + Pup * oc2, 5)
-    rmask = (torch.arange(R, device=dev) > 0).view(1, R, 1, 1, 1)
-    top = torch.where(rmask, blend, P[:, :, :n_ov])
+    if ov_mask is None:
+        rmask = torch.arange(R, device=dev) > 0
+    else:
+        rmask = torch.as_tensor(ov_mask, dtype=torch.bool, device=dev)
+        if tuple(rmask.shape) != (R,):
+            raise ValueError(f"ov_mask: expected ({R},), got "
+                             f"{tuple(rmask.shape)}")
+    top = torch.where(rmask.view(1, R, 1, 1), blend, P[:, :, :n_ov])
     P = torch.cat([top, P[:, :, n_ov:]], dim=2).reshape(F, Hp, Wp)
 
     # Horizontal deblock (vfgs_hw.c:250-258): both samples adjacent to an
     # interior block boundary become round(prev + 3*self + next, 2).
+    bw = 16 // (csubx if c else 1)
     Pm = torch.cat([P[..., :1], P[..., :-1]], dim=-1)
     Pp = torch.cat([P[..., 1:], P[..., -1:]], dim=-1)
     sm = _round_shift(Pm + 3 * P + Pp, 2)
