@@ -6,8 +6,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
 Phases, one result line each:
   1. device   -- the card's name and power limit;
-  2. build    -- nvcc builds csrc/grain_natural.cu, csrc/grain_tiled.cu and
-                 csrc/expand_words.cu, all at once; ptxas' register, shared
+  2. build    -- nvcc builds csrc/grain_natural.cu, csrc/grain_tiled.cu,
+                 csrc/expand_words.cu, csrc/probe_budget.cu and
+                 csrc/probe_pipe.cu, all at once; ptxas' register, shared
                  memory and spill report;
   3. kernel   -- the kernel against its plain torch version on the card at
                  3840x2160 10-bit 4:2:0, default config, one batch of 8
@@ -42,8 +43,18 @@ Phases, one result line each:
                  K1 boot launches and K2 launches counted;
  14. shard geometry -- the same at 128x256 over the dryrun_multichip sweep
                  (SEI-FF, AFGS1 x 4:2:0, 4:4:4 luma-only, 4:2:2, 8-bit x
-                 grain offset 0 and 3), meshes (2, 4) and (1, 8).
-Then one JSON line describing the three kernels, and as the last line
+                 grain offset 0 and 3), meshes (2, 4) and (1, 8);
+ 15. budget   -- every variant of the per-stage budget kernel (K5,
+                 csrc/probe_budget.cu) == its plain version at 4K (default
+                 config) and at phase 4's 256x192 sei_ar_test1 and
+                 afgs1_test1 cases; then the budget table at 4K for the
+                 default, sei_ar and afgs1 configs (the probe's run_config,
+                 launches counted);
+ 16. pipe     -- the prefetch probe kernel (K4, csrc/probe_pipe.cu) == K1 ==
+                 the plain version at 4K and on phase 4's 10-bit cases;
+                 K4 and K1 timed in turns; the probe's run_config for the
+                 three configs (launches counted, bit-exact).
+Then one JSON line describing the five kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  It needs a CUDA device and the rest of the repository.
 """
@@ -230,7 +241,8 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
-    sources = ("grain_natural", "grain_tiled", "expand_words")
+    sources = ("grain_natural", "grain_tiled", "expand_words",
+               "probe_budget", "probe_pipe")
     _kernels.build(sources)
     for name in sources:
         _kernels.load(name)
@@ -629,6 +641,114 @@ def main() -> int:
               f"pallas: sharded == unsharded K1 == plain (max |err| 0)")
     phase("shard geometry", f"{ncase} cases passed")
 
+    # 15. the per-stage budget kernel (K5)
+    from versatilefilmgrain_tpu_torch.tools import _harness as hz
+    from versatilefilmgrain_tpu_torch.tools import probe_budget, probe_ohpipe
+    bcounter = probe_budget.grain_plane_budget_cuda
+    pcounter = probe_ohpipe.grain_plane_pipe_cuda
+    budget_cases = [(f"default {W}x{H}", pipe, frame_ids)] + [
+        (name, GrainPipeline(w, h, depth, fmt, device=dev, **kw), [0, 1, 3])
+        for name, w, h, depth, fmt, kw in cases[:2]]
+    err_k5 = 0
+    for name, bpipe, fids in budget_cases:
+        bpipe.maybe_switch_config(0)
+        btables = grain_natural.natural_tables(bpipe.regs, dev)
+        bplanes = random_batch(bpipe, len(fids), 300, dev)
+        blat = grain_natural._lattice([bpipe.frame_bases(f)[0] for f in fids],
+                                      bplanes[0])
+        bwords = grain_natural._as_int32_words(blat)
+        for vname, skip in probe_budget.VARIANTS.items():
+            got = probe_budget.make_step(btables, skip=skip)(*bplanes, blat,
+                                                            bwords)
+            want = probe_budget.budget_batch_plain(*bplanes, blat, btables,
+                                                   skip=skip)
+            torch.cuda.synchronize()
+            err = max(int((a.int() - b.int()).abs().max())
+                      for a, b in zip(got, want))
+            check(err == 0, f"budget {name} {vname}: kernel differs from its "
+                  f"plain version (max |err| {err})")
+            err_k5 = max(err_k5, err)
+        phase("budget", f"{name}: {len(probe_budget.VARIANTS)} variants "
+              f"({', '.join(probe_budget.VARIANTS)}) == plain (max |err| 0)")
+        del bplanes, blat, bwords
+    state0 = hz.random_state(F, 0, H, W, device=dev)
+    slat = grain_natural._lattice(
+        hz.frame_bases(hz.default_regs(), F, H // 16, W // 16)[0], state0[0])
+    swords = grain_natural._as_int32_words(slat)
+    dtables = grain_natural.natural_tables(hz.default_regs(), dev)
+    k5_ms = hz.chain_ms(probe_budget.make_step(dtables), state0,
+                        (slat, swords))
+    k5_plain_ms = cuda_ms(lambda: probe_budget.budget_batch_plain(
+        *state0, slat, dtables), 5, warmup=1)
+    phase("budget", f"card {card}; full variant {k5_ms:.4f} ms, its plain "
+          f"version {k5_plain_ms:.3f} ms per {W}x{H} step of {F} frames")
+    bcounter.launches = 0
+    budgets = {kind: probe_budget.run_config(kind, state0, F)
+               for kind in ("default", "sei_ar", "afgs1")}
+    k5_launches = bcounter.launches
+    check(k5_launches > 0, "the budget run never launched the K5 kernel")
+    phase("budget", f"budget of 3 configs on card {card}: {k5_launches} K5 "
+          f"launches; full " + ", ".join(
+              f"{k} {b['full']:.4f} ms" for k, b in budgets.items()))
+
+    # 16. the prefetch probe kernel (K4)
+    pipe_cases = [(f"default {W}x{H}", W, H, pipe, frame_ids)] + [
+        (name, w, h, GrainPipeline(w, h, depth, fmt, device=dev, **kw),
+         [0, 1, 3])
+        for name, w, h, depth, fmt, kw in cases if depth == 10]
+    err_k4 = 0
+    for name, w, h, ppipe, fids in pipe_cases:
+        ppipe.maybe_switch_config(0)
+        pregs = ppipe.regs
+        ptables = grain_natural.natural_tables(pregs, dev)
+        pplanes = random_batch(ppipe, len(fids), 400, dev)
+        pb, pbu = (list(b) for b in zip(*(ppipe.frame_bases(f)
+                                          for f in fids)))
+        pgeo = dict(bs=pregs.bs, csubx=pregs.csubx, csuby=pregs.csuby)
+        got = probe_ohpipe.make_pipe_step(ptables, height=h, width=w,
+                                          **pgeo)(*pplanes, pb, pbu)
+        k1o = grain_natural.add_grain_batch_natural(
+            *pplanes, pb, pbu, ptables, height=h, width=w, **pgeo)
+        want = grain_natural.add_grain_batch_plain(*pplanes, pb, ptables,
+                                                   **pgeo)
+        torch.cuda.synchronize()
+        err = max(max(int((a.int() - b.int()).abs().max()),
+                      int((a.int() - c.int()).abs().max()))
+                  for a, b, c in zip(got, k1o, want))
+        check(err == 0, f"pipe {name}: K4 differs from K1 or the plain "
+              f"version (max |err| {err})")
+        err_k4 = max(err_k4, err)
+        phase("pipe", f"{name}: K4 == K1 == plain on Y, U, V (max |err| 0)")
+        del pplanes, got, k1o, want
+
+    def run_k1():
+        for c, p in enumerate(state0):
+            grain_natural.grain_plane_cuda(p, swords, dtables, c=c, **geo)
+
+    def run_k4():
+        for c, p in enumerate(state0):
+            probe_ohpipe.grain_plane_pipe_cuda(p, swords, dtables, c=c, **geo)
+
+    t4 = [cuda_ms(fn, 20) for fn in (run_k1, run_k4, run_k4, run_k1)]
+    # the plain version of the kernels alone, on the same lattice
+    k4_plain_ms = cuda_ms(lambda: grain_natural._grain_planes_plain(
+        state0, [slat] * 3, [grain_natural._rows_above(slat)] * 3, dtables,
+        **geo), 5, warmup=1)
+    phase("pipe", f"per {W}x{H} step of {F} frames, kernels alone (CUDA "
+          f"events; runs K1, K4, K4, K1): K1 {t4[0]:.4f} / {t4[3]:.4f} ms, "
+          f"K4 {t4[1]:.4f} / {t4[2]:.4f} ms ({probe_ohpipe.BLOCKS_PER_SM} "
+          f"blocks per SM at most); plain {k4_plain_ms:.3f} ms; card {card}")
+    pcounter.launches = 0
+    pipes = {kind: probe_ohpipe.run_config(kind, state0, F)
+             for kind in ("default", "sei_ar", "afgs1")}
+    k4_launches = pcounter.launches
+    check(k4_launches > 0, "the pipe run never launched the K4 kernel")
+    check(all(exact for _, exact in pipes.values()),
+          "the pipe run found K4 and K1 diverging")
+    phase("pipe", f"probe run of 3 configs: {k4_launches} K4 launches, "
+          f"bit-exact; card {card}")
+    del state0, slat, swords
+
     print(json.dumps({"kernels": [{
         "name": "grain_natural", "route": "cuda",
         "source": "versatilefilmgrain_tpu_torch/csrc/grain_natural.cu",
@@ -644,7 +764,17 @@ def main() -> int:
         "source": "versatilefilmgrain_tpu_torch/csrc/expand_words.cu",
         "replaces": "versatilefilmgrain_tpu/ops/grain_natural.py:801",
         "launches": mesh_k2_launches, "max_abs_err": err_k2,
-        "ms": k2_ms, "plain_ms": k2_plain_ms}]}), flush=True)
+        "ms": k2_ms, "plain_ms": k2_plain_ms}, {
+        "name": "probe_budget", "route": "cuda",
+        "source": "versatilefilmgrain_tpu_torch/csrc/probe_budget.cu",
+        "replaces": "tools/probe_budget.py:134",
+        "launches": k5_launches, "max_abs_err": err_k5,
+        "ms": k5_ms, "plain_ms": k5_plain_ms}, {
+        "name": "probe_pipe", "route": "cuda",
+        "source": "versatilefilmgrain_tpu_torch/csrc/probe_pipe.cu",
+        "replaces": "tools/probe_ohpipe.py:139",
+        "launches": k4_launches, "max_abs_err": err_k4,
+        "ms": min(t4[1], t4[2]), "plain_ms": k4_plain_ms}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,5 +1,6 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
-K1 (lattice and lane-word input, shard boot), K2 and K3.
+K1 (lattice and lane-word input, shard boot), K2, K3 and the two probes of
+K1 (K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu).
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one (the kernel has no CPU mode; the CPU tests hold the plain
@@ -198,3 +199,66 @@ def test_shard_body_matches_plain(mode, blend0, cuda_device):
     torch.cuda.synchronize()
     for c in range(3):
         assert torch.equal(got[c].cpu(), want[c]), f"{mode} plane {c}"
+
+
+@pytest.mark.parametrize("kind", ["default", "sei_ar", "afgs1"])
+def test_budget_variants_match_plain(kind, cuda_device):
+    """Every variant of the per-stage budget kernel (csrc/probe_budget.cu)
+    == its plain version, at 256x192 10-bit 4:2:0."""
+    from versatilefilmgrain_tpu_torch.tools import _harness as hz
+    from versatilefilmgrain_tpu_torch.tools import probe_budget
+    regs = hz.config_regs(kind)
+    tables = grain_natural.natural_tables(regs, cuda_device)
+    planes = hz.random_state(3, 67, H, W, device=cuda_device)
+    bases, _ = hz.frame_bases(regs, 3, R, C)
+    lat = grain_natural._lattice(bases, planes[0])
+    words = grain_natural._as_int32_words(lat)
+    counter = probe_budget.grain_plane_budget_cuda
+    for name, skip in probe_budget.VARIANTS.items():
+        before = counter.launches
+        got = probe_budget.make_step(tables, skip=skip)(*planes, lat, words)
+        want = probe_budget.budget_batch_plain(*planes, lat, tables,
+                                               skip=skip)
+        torch.cuda.synchronize()
+        assert counter.launches == before + (1 if "chroma" in skip else 3)
+        for c in range(3):
+            assert torch.equal(got[c], want[c]), f"{kind} {name} plane {c}"
+
+
+@pytest.mark.parametrize("kind", ["default", "sei_ar", "afgs1"])
+def test_pipe_matches_k1(kind, cuda_device):
+    """The prefetch probe kernel (csrc/probe_pipe.cu) == K1 == the plain
+    version, at 256x192 10-bit 4:2:0, on grids of 1 and 4 blocks per SM,
+    and from a plane that is 4-byte but not 16-byte aligned."""
+    from versatilefilmgrain_tpu_torch.tools import _harness as hz
+    from versatilefilmgrain_tpu_torch.tools import probe_ohpipe
+    regs = hz.config_regs(kind)
+    tables = grain_natural.natural_tables(regs, cuda_device)
+    planes = hz.random_state(3, 71, H, W, device=cuda_device)
+    bases, bases_up = hz.frame_bases(regs, 3, R, C)
+    want = grain_natural.add_grain_batch_natural(
+        *planes, bases, bases_up, tables, height=H, width=W, bs=2, csubx=2,
+        csuby=2)
+    plain = grain_natural.add_grain_batch_plain(*planes, bases, tables,
+                                                bs=2, csubx=2, csuby=2)
+    counter = probe_ohpipe.grain_plane_pipe_cuda
+    for bps in (1, 4):
+        before = counter.launches
+        got = probe_ohpipe.make_pipe_step(tables, height=H, width=W,
+                                          blocks_per_sm=bps)(
+            *planes, bases, bases_up)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 3
+        for c in range(3):
+            assert torch.equal(got[c], want[c]), f"{kind} {bps} plane {c}"
+            assert torch.equal(got[c], plain[c]), f"{kind} {bps} plane {c}"
+    buf = torch.empty(planes[0].numel() + 2, dtype=torch.uint16,
+                      device=cuda_device)
+    y = buf[2:].view(planes[0].shape)
+    y.copy_(planes[0])
+    assert y.data_ptr() % 16 != 0 and y.data_ptr() % 4 == 0
+    words = grain_natural._as_int32_words(grain_natural._lattice(bases, y))
+    got = probe_ohpipe.grain_plane_pipe_cuda(y, words, tables, c=0, bs=2,
+                                             csubx=2, csuby=2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want[0])

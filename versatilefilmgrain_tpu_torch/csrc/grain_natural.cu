@@ -30,175 +30,19 @@
 // batch of 8 frames), read under the arithmetic: the kernel is bound by its
 // integer instructions, and the lane decode is shorter than the lattice's.
 //
-// Per pixel (f, y, x) of plane c, block row r = y / bh, block column
-// b = x / bw (reference: vfgs_hw.c:140-312, JAX ops/grain_jnp.py):
-//   (s, ox, oy)  = block_offsets(lat[f, r, b])            (vfgs_hw.c:99-138)
-//   pi, sc       = plut[c][inten] >> 4, slut[c][inten]    inten = (pix>>bs)&255
-//   P            = s * pattern[pi][oy + y%bh][ox + x%bw]
-//   overlap      rows y%bh < n_ov of block rows r > 0 blend with the upper
-//                block's samples, pattern rows oy_up + bh + y%bh at the upper
-//                block's offsets and sign and this pixel's pi
-//   deblock      (P[x-1] + 3P[x] + P[x+1] + 2) >> 2 at x%bw in {0, bw-1},
-//                except x = 0 and x = Wp-1, on the blended P of each
-//                neighbour (each with its own block, sign and pi)
-//   out          clip(pix + ((sc*P + (1 << (ss-1))) >> ss), imin<<bs, imax<<bs)
-// All arithmetic is int32 with arithmetic right shifts, as in the C model.
-// Padded rows and columns are grained like real ones.
+// The device code (offset decode, grain sample, per-pixel body and the
+// kernel) is in grain_natural_body.cuh, shared with the two probes that
+// fork it (probe_budget.cu, probe_pipe.cu); this file instantiates it with
+// no stage removed (kSkip = 0) and holds the C entry point.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/_kernels.py does this at first use).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "grain_natural_body.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kPatternBytes = 8 * 64 * 64;
-
-struct Plane {
-  int c, bs;
-  int bh, bw, lbw, n_ov;
-  int xmul, ymul;
-  int lkc;  // log2 of KC = 16 * xmul, the lane word's pattern-column range
-};
-
-__device__ __forceinline__ void block_offsets(uint32_t val, const Plane& g,
-                                              int& s, int& ox, int& oy) {
-  uint32_t sign_bit, xbf, ybf;
-  if (g.c == 0) {
-    sign_bit = (val >> 31) & 1u;
-    xbf = val & 0x3FFu;
-    ybf = (val >> 14) & 0x3FFu;
-  } else if (g.c == 1) {
-    sign_bit = (val >> 2) & 1u;
-    xbf = (val >> 10) & 0x3FFu;
-    ybf = ((val >> 24) & 0x0FFu) | ((val << 8) & 0x300u);
-  } else {
-    sign_bit = (val >> 15) & 1u;
-    xbf = (val >> 20) & 0x3FFu;
-    ybf = (val >> 4) & 0x3FFu;
-  }
-  s = 1 - 2 * int(sign_bit);
-  ox = int((xbf * 13u) >> 10) * g.xmul;
-  oy = int((ybf * 12u) >> 10) * g.ymul;
-}
-
-// Sign s, pattern column col = ox + x % bw and pattern row oy of column x,
-// from one block row's words (lattice or lane words).
-template <bool kLane>
-__device__ __forceinline__ void offsets_at(const uint32_t* __restrict__ words,
-                                           int x, const Plane& g, int& s,
-                                           int& col, int& oy) {
-  if constexpr (kLane) {
-    const uint32_t w = __ldg(words + x);
-    const int t = int(w & 0x3FFu);
-    s = 1 - 2 * int((w >> 10) & 1u);
-    col = t & (16 * g.xmul - 1);
-    oy = (t >> g.lkc) * g.ymul;
-  } else {
-    int ox;
-    block_offsets(__ldg(words + (x >> g.lbw)), g, s, ox, oy);
-    col = ox + (x & (g.bw - 1));
-  }
-}
-
-// Blended, pre-deblock grain sample of column x on line j of the block row.
-// `up` is the upper block row's words, or null where the row does not blend
-// (a frame's first block row, a shard's first without blend0).
-template <bool kLane, typename T>
-__device__ __forceinline__ int grain_sample(const T* __restrict__ row,
-                                            const uint32_t* __restrict__ words,
-                                            const uint32_t* __restrict__ up,
-                                            const int8_t* pat,
-                                            const uint8_t* plut, int x, int j,
-                                            const Plane& g) {
-  const int inten = (int(row[x]) >> g.bs) & 0xFF;
-  const int8_t* p = pat + (plut[inten] >> 4) * (64 * 64);
-  int s, col, oy;
-  offsets_at<kLane>(words, x, g, s, col, oy);
-  int P = s * int(p[(oy + j) * 64 + col]);
-  if (up != nullptr && j < g.n_ov) {
-    int su, colu, oyu;
-    offsets_at<kLane>(up, x, g, su, colu, oyu);
-    const int Pu = su * int(p[(oyu + g.bh + j) * 64 + colu]);
-    const int oc1 = g.n_ov == 1 ? 20 : (j == 0 ? 12 : 24);
-    const int oc2 = g.n_ov == 1 ? 20 : (j == 0 ? 24 : 12);
-    P = (P * oc1 + Pu * oc2 + 16) >> 5;
-  }
-  return P;
-}
-
-// One thread block per (frame, block row): grid.x = F * R.  Threads stride
-// over the columns of each of the block row's bh lines.
-template <typename T, bool kLane>
-__global__ void __launch_bounds__(kThreads)
-grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
-                   const uint32_t* __restrict__ words,
-                   const uint32_t* __restrict__ up0,
-                   const int8_t* __restrict__ pattern,
-                   const uint8_t* __restrict__ slut,
-                   const uint8_t* __restrict__ plut,
-                   const int* __restrict__ scalars, int R, int C, Plane g,
-                   int zero_scale, int blend0) {
-  __shared__ __align__(16) int8_t s_pat[kPatternBytes];
-  __shared__ uint8_t s_slut[256];
-  __shared__ uint8_t s_plut[256];
-
-  const int fr = blockIdx.x;  // f * R + r
-  const int r = fr % R;
-  const int Wp = C * g.bw;
-  const size_t base = size_t(fr) * g.bh * Wp;
-  const int imin = __ldg(scalars + (g.c ? 3 : 1)) << g.bs;
-  const int imax = __ldg(scalars + (g.c ? 4 : 2)) << g.bs;
-
-  if (zero_scale) {
-    // Identically zero scale LUT: the grain is exactly 0, only the clip is
-    // left (the C model still runs its per-pixel loop, vfgs_hw.c:266-276).
-    for (int j = 0; j < g.bh; ++j) {
-      const T* row = in + base + size_t(j) * Wp;
-      T* orow = out + base + size_t(j) * Wp;
-      for (int x = threadIdx.x; x < Wp; x += kThreads)
-        orow[x] = T(min(max(int(row[x]), imin), imax));
-    }
-    return;
-  }
-
-  const int4* src = reinterpret_cast<const int4*>(pattern);
-  int4* dst = reinterpret_cast<int4*>(s_pat);
-  for (int k = threadIdx.x; k < kPatternBytes / 16; k += kThreads)
-    dst[k] = __ldg(src + k);
-  s_slut[threadIdx.x] = slut[threadIdx.x];
-  s_plut[threadIdx.x] = plut[threadIdx.x];
-  __syncthreads();
-
-  const int ss = __ldg(scalars);
-  const int bias = 1 << (ss - 1);
-  const int stride = kLane ? Wp : C;  // words per block row
-  const uint32_t* lrow = words + size_t(fr) * stride;
-  const uint32_t* up = r > 0    ? lrow - stride
-                       : blend0 ? up0 + size_t(fr / R) * stride
-                                : nullptr;
-  for (int j = 0; j < g.bh; ++j) {
-    const T* row = in + base + size_t(j) * Wp;
-    T* orow = out + base + size_t(j) * Wp;
-    for (int x = threadIdx.x; x < Wp; x += kThreads) {
-      const int pix = int(row[x]);
-      int P = grain_sample<kLane>(row, lrow, up, s_pat, s_plut, x, j, g);
-      const int i = x & (g.bw - 1);
-      if ((i == 0 && x > 0) || (i == g.bw - 1 && x < Wp - 1)) {
-        const int Pl =
-            grain_sample<kLane>(row, lrow, up, s_pat, s_plut, x - 1, j, g);
-        const int Pr =
-            grain_sample<kLane>(row, lrow, up, s_pat, s_plut, x + 1, j, g);
-        P = (Pl + 3 * P + Pr + 2) >> 2;
-      }
-      const int sc = s_slut[(pix >> g.bs) & 0xFF];
-      const int v = pix + ((sc * P + bias) >> ss);
-      orow[x] = T(min(max(v, imin), imax));
-    }
-  }
-}
+using namespace vfg;
 
 // Launch one kernel instance for a sample type and a word input.
 template <typename T>
@@ -210,10 +54,10 @@ void launch(const void* in, void* out, const uint32_t* words,
   const T* i = static_cast<const T*>(in);
   T* o = static_cast<T*>(out);
   if (lane)
-    grain_plane_kernel<T, true><<<grid, kThreads, 0, st>>>(
+    grain_plane_kernel<T, true, 0><<<grid, kThreads, 0, st>>>(
         i, o, words, up0, p, sl, pl, sc, rows, cols, g, zero_scale, blend0);
   else
-    grain_plane_kernel<T, false><<<grid, kThreads, 0, st>>>(
+    grain_plane_kernel<T, false, 0><<<grid, kThreads, 0, st>>>(
         i, o, words, up0, p, sl, pl, sc, rows, cols, g, zero_scale, blend0);
 }
 
@@ -236,24 +80,12 @@ extern "C" int vfg_grain_plane(const void* in, void* out, int elem_bytes,
                                const void* scalars, int frames, int rows,
                                int cols, int c, int csubx, int csuby, int bs,
                                int zero_scale, void* stream) {
-  if (frames < 1 || rows < 1 || cols < 1 || c < 0 || c > 2 ||
-      (csubx != 1 && csubx != 2) || (csuby != 1 && csuby != 2) ||
-      (bs != 0 && bs != 2) || (elem_bytes != 1 && elem_bytes != 2) ||
-      (lane != 0 && lane != 1) || (blend0 != 0 && blend0 != 1) ||
-      (blend0 && up0 == nullptr))
-    return int(cudaErrorInvalidValue);
-  const int subx = c ? csubx : 1;
-  const int suby = c ? csuby : 1;
   Plane g;
-  g.c = c;
-  g.bs = bs;
-  g.bh = 16 / suby;
-  g.bw = 16 / subx;
-  g.lbw = subx == 2 ? 3 : 4;
-  g.n_ov = suby == 2 ? 1 : 2;
-  g.xmul = c ? 4 / csubx : 4;
-  g.ymul = c ? 4 / csuby : 4;
-  g.lkc = g.xmul == 4 ? 6 : 5;
+  if (frames < 1 || rows < 1 || cols < 1 ||
+      !make_plane(c, csubx, csuby, bs, g) ||
+      (elem_bytes != 1 && elem_bytes != 2) || (lane != 0 && lane != 1) ||
+      (blend0 != 0 && blend0 != 1) || (blend0 && up0 == nullptr))
+    return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const uint32_t* w = static_cast<const uint32_t*>(words);
   const uint32_t* u = static_cast<const uint32_t*>(up0);

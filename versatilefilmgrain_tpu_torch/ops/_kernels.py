@@ -2,7 +2,8 @@
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/kernels/`` at first use, and loaded
-with ``ctypes``.  Nothing here runs at import: the package imports on
+with ``ctypes``.  A library is rebuilt when its source or any shared header
+(csrc/*.cuh) is newer.  Nothing here runs at import: the package imports on
 machines without a card or a CUDA toolkit, and only a launch on a CUDA tensor
 builds.  A failed build raises; there is no fallback.
 """
@@ -10,6 +11,7 @@ builds.  A failed build raises; there is no fallback.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -43,14 +45,23 @@ def _paths(name: str) -> tuple[str, str]:
             os.path.join(_BUILD_DIR, f"lib{name}.so"))
 
 
+def stale(src: str, so: str) -> bool:
+    """Whether the library ``so`` is missing, or not newer than its source
+    ``src`` and every header (``*.cuh``) in the source's directory."""
+    if not os.path.exists(so):
+        return True
+    deps = [src, *glob.glob(os.path.join(os.path.dirname(src), "*.cuh"))]
+    return os.path.getmtime(so) <= max(os.path.getmtime(d) for d in deps)
+
+
 def build(names) -> None:
     """Compile each csrc/<name>.cu to build/kernels/lib<name>.so that is
-    missing or older than its source: one nvcc per source, all started
-    together, then wait for every one.  Raises if any build fails."""
+    :func:`stale`: one nvcc per source, all started together, then wait for
+    every one.  Raises if any build fails."""
     jobs = []
     for name in names:
         src, so = _paths(name)
-        if os.path.exists(so) and os.path.getmtime(so) > os.path.getmtime(src):
+        if not stale(src, so):
             continue
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{so}.tmp{os.getpid()}"
@@ -111,4 +122,22 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp, vp, i, i,           # in0, out0, cols0, bw0
             vp, vp, i, i,           # in1, out1, cols1, bw1
             vp, vp, i, i,           # in2, out2, cols2, bw2
+            vp]                     # stream
+    elif name == "probe_budget":
+        lib.vfg_probe_budget.restype = i
+        lib.vfg_probe_budget.argtypes = [
+            vp, vp, vp,             # in, out, words
+            vp, vp, vp, vp,         # pattern, slut, plut, scalars
+            i, i, i,                # frames, rows, cols
+            i, i, i, i, i,          # c, csubx, csuby, bs, zero_scale
+            i, i,                   # pat_mask, skip
+            vp]                     # stream
+    elif name == "probe_pipe":
+        lib.vfg_probe_pipe.restype = i
+        lib.vfg_probe_pipe.argtypes = [
+            vp, vp, vp,             # in, out, words
+            vp, vp, vp, vp,         # pattern, slut, plut, scalars
+            i, i, i,                # frames, rows, cols
+            i, i, i, i, i,          # c, csubx, csuby, bs, zero_scale
+            i,                      # blocks_per_sm
             vp]                     # stream

@@ -73,13 +73,22 @@ def plane_grain(pix, states, states_up, pattern, slut, plut, scale_shift,
 
 def plane_grain_lanes(pix, lanes, lanes_up, pattern, slut, plut, scale_shift,
                       imin, imax, ov_mask=None, *, c: int, csubx: int,
-                      csuby: int, bs: int):
+                      csuby: int, bs: int, skip=frozenset(),
+                      pat_mask: int = 0):
     """:func:`plane_grain` on offsets already decoded per lane.
 
     ``lanes``/``lanes_up``: ``(sign, col, oy)`` triples of (F, R, Wp)
     tensors for the current and the upper block row, from
     :func:`lane_offsets` (lattice words) or from the lane words of
     ops/grain_natural.py (``lane_word_offsets``).
+
+    ``skip`` (the per-stage budget probe only, tools/probe_budget.py): the
+    stages removed, as csrc/grain_natural_body.cuh's stage mask -- "lut"
+    (scale = intensity, pattern index = intensity & ``pat_mask``),
+    "select" (pattern 0), "fetch" (the sample is the signed low byte of
+    ``row * 64 + col + pattern index``), "blend", "deblock", "epilogue"
+    (``pix + P``, wrapping); "stage" changes nothing here.  Empty: the
+    grain.
     """
     F, Hp, Wp = pix.shape
     dev = pix.device
@@ -96,8 +105,14 @@ def plane_grain_lanes(pix, lanes, lanes_up, pattern, slut, plut, scale_shift,
 
     x = pix.to(torch.int32)
     intensity = ((x >> bs) & 0xFF).long()
-    pi = plut.long()[intensity] >> 4          # pattern index (vfgs_hw.c:212)
-    sc = slut.to(torch.int32)[intensity]      # scale (vfgs_hw.c:239)
+    if "lut" in skip:
+        pi = intensity & pat_mask
+        sc = intensity.to(torch.int32)
+    else:
+        pi = plut.long()[intensity] >> 4      # pattern index (vfgs_hw.c:212)
+        sc = slut.to(torch.int32)[intensity]  # scale (vfgs_hw.c:239)
+        if "select" in skip:
+            pi = torch.zeros_like(pi)
 
     pat = pattern.reshape(-1)
     pi4 = pi.view(F, R, bh, Wp)
@@ -106,33 +121,41 @@ def plane_grain_lanes(pix, lanes, lanes_up, pattern, slut, plut, scale_shift,
     def window(p, lanes_, rows):
         """s * pattern[p, oy + rows, col] per pixel of the strip."""
         sgn, col, oy = (t[:, :, None, :] for t in lanes_)
+        if "fetch" in skip:
+            low = ((oy + rows) * 64 + col + p) & 0xFF
+            return ((low ^ 0x80) - 0x80).to(torch.int32) * sgn
         return pat[(p * 64 + oy + rows) * 64 + col].to(torch.int32) * sgn
 
     P = window(pi4, lanes, jj)                # oy += j/suby (vfgs_hw.c:197)
-    # Vertical overlap (vfgs_hw.c:223-229): oy_up += (16+j)/suby = bh + j.
-    Pup = window(pi4[:, :, :n_ov], lanes_up, jj[:, :, :n_ov] + bh)
-    blend = _round_shift(P[:, :, :n_ov] * oc1 + Pup * oc2, 5)
-    if ov_mask is None:
-        rmask = torch.arange(R, device=dev) > 0
-    else:
-        rmask = torch.as_tensor(ov_mask, dtype=torch.bool, device=dev)
-        if tuple(rmask.shape) != (R,):
-            raise ValueError(f"ov_mask: expected ({R},), got "
-                             f"{tuple(rmask.shape)}")
-    top = torch.where(rmask.view(1, R, 1, 1), blend, P[:, :, :n_ov])
-    P = torch.cat([top, P[:, :, n_ov:]], dim=2).reshape(F, Hp, Wp)
+    if "blend" not in skip:
+        # Vertical overlap (vfgs_hw.c:223-229): oy_up += (16+j)/suby = bh + j.
+        Pup = window(pi4[:, :, :n_ov], lanes_up, jj[:, :, :n_ov] + bh)
+        blend = _round_shift(P[:, :, :n_ov] * oc1 + Pup * oc2, 5)
+        if ov_mask is None:
+            rmask = torch.arange(R, device=dev) > 0
+        else:
+            rmask = torch.as_tensor(ov_mask, dtype=torch.bool, device=dev)
+            if tuple(rmask.shape) != (R,):
+                raise ValueError(f"ov_mask: expected ({R},), got "
+                                 f"{tuple(rmask.shape)}")
+        top = torch.where(rmask.view(1, R, 1, 1), blend, P[:, :, :n_ov])
+        P = torch.cat([top, P[:, :, n_ov:]], dim=2)
+    P = P.reshape(F, Hp, Wp)
 
-    # Horizontal deblock (vfgs_hw.c:250-258): both samples adjacent to an
-    # interior block boundary become round(prev + 3*self + next, 2).
-    bw = 16 // (csubx if c else 1)
-    Pm = torch.cat([P[..., :1], P[..., :-1]], dim=-1)
-    Pp = torch.cat([P[..., 1:], P[..., -1:]], dim=-1)
-    sm = _round_shift(Pm + 3 * P + Pp, 2)
-    xs = torch.arange(Wp, device=dev)
-    mask = (((xs % bw) == 0) & (xs > 0)) | \
-           (((xs % bw) == bw - 1) & (xs < Wp - 1))
-    P = torch.where(mask, sm, P)
+    if "deblock" not in skip:
+        # Horizontal deblock (vfgs_hw.c:250-258): both samples adjacent to
+        # an interior block boundary become round(prev + 3*self + next, 2).
+        bw = 16 // (csubx if c else 1)
+        Pm = torch.cat([P[..., :1], P[..., :-1]], dim=-1)
+        Pp = torch.cat([P[..., 1:], P[..., -1:]], dim=-1)
+        sm = _round_shift(Pm + 3 * P + Pp, 2)
+        xs = torch.arange(Wp, device=dev)
+        mask = (((xs % bw) == 0) & (xs > 0)) | \
+               (((xs % bw) == bw - 1) & (xs < Wp - 1))
+        P = torch.where(mask, sm, P)
 
+    if "epilogue" in skip:
+        return ((x + P) & ((1 << (8 * pix.element_size())) - 1)).to(pix.dtype)
     # Scale, add, clamp (vfgs_hw.c:263-267).
     g = (sc * P + (1 << (scale_shift - 1))) >> scale_shift
     return torch.clamp(x + g, imin << bs, imax << bs).to(pix.dtype)
