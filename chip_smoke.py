@@ -7,9 +7,9 @@ Run from the repository root on a machine with one NVIDIA GPU:
 Phases, one result line each:
   1. device   -- the card's name and power limit;
   2. build    -- nvcc builds csrc/grain_natural.cu, csrc/grain_tiled.cu,
-                 csrc/expand_words.cu, csrc/probe_budget.cu and
-                 csrc/probe_pipe.cu, all at once; ptxas' register, shared
-                 memory and spill report;
+                 csrc/expand_words.cu, csrc/probe_budget.cu,
+                 csrc/probe_pipe.cu and csrc/probe_dot.cu, all at once;
+                 ptxas' register, shared memory and spill report;
   3. kernel   -- the kernel against its plain torch version on the card at
                  3840x2160 10-bit 4:2:0, default config, one batch of 8
                  frames; exact equality on all planes; both timed with CUDA
@@ -53,8 +53,19 @@ Phases, one result line each:
  16. pipe     -- the prefetch probe kernel (K4, csrc/probe_pipe.cu) == K1 ==
                  the plain version at 4K and on phase 4's 10-bit cases;
                  K4 and K1 timed in turns; the probe's run_config for the
-                 three configs (launches counted, bit-exact).
-Then one JSON line describing the five kernels, and as the last line
+                 three configs (launches counted, bit-exact);
+ 17. dot      -- every mode of the one-hot dot probe K6 (none, int8, bf16,
+                 f32 on the tensor cores, csrc/probe_dot.cu) and its gather
+                 mode == the plain version, exact, at 2 frames of 160x32 (a
+                 width that is not a multiple of 128), then the probe's run
+                 at 3840x2160, 8 frames (launches counted, every mode exact,
+                 bf16 == int8 == gather); the plain version and one library
+                 call per mode timed (torch._int_mm, bf16 and TF32
+                 torch.matmul, pat[:, t]);
+ 18. dot2     -- the same for K7's modes (none, int8, build, dotconst);
+ 19. dotscale -- the same for K8's dense int8 product at M = 16, 64, 128,
+                 144, 160, 256.
+Then one JSON line describing the eight kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  It needs a CUDA device and the rest of the repository.
 """
@@ -64,6 +75,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -101,6 +113,61 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def byte_bound_ms(n):
+    """Least ms to move ``n`` bytes at the H100 SXM's 3.35 TB/s."""
+    return 1e3 * n / 3.35e12
+
+
+def max_err(a, b):
+    torch.cuda.synchronize()
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"{a.dtype}{tuple(a.shape)} vs {b.dtype}{tuple(b.shape)}")
+    return int((a.int() - b.int()).abs().max())
+
+
+def exact_small(tag, cases, y):
+    """Each case ``label: (step, want)``: one step on ``y`` == ``want``."""
+    for label, (step, want) in cases.items():
+        err = max_err(step(y)[0], want)
+        check(err == 0, f"{tag} {label}: kernel differs from its plain "
+              f"version (max |err| {err})")
+
+
+def int_mm_ms(a, pat):
+    """Device ms of torch._int_mm(a, pat^T), the library yardstick of an
+    int8 product (pat^T as a column-major view where cuBLASLt takes it)."""
+    b = pat.t()
+    try:
+        torch._int_mm(a, b)
+    except RuntimeError:
+        b = pat.t().contiguous()
+    return cuda_ms(lambda: torch._int_mm(a, b), 5, warmup=1)
+
+
+def sass_counts(kernels, lib, function):
+    """Instruction counts of the SASS of the kernel instance whose mangled
+    name holds ``function``, in the built library ``lib`` (cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "cuobjdump not found"
+    so = kernels._paths(lib)[1]
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    body = next((f for f in sass.split("Function : ")[1:]
+                 if function in f.split("\n", 1)[0]), None)
+    check(body is not None, f"no SASS for {function} in {so}")
+    ops = re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     body)
+    keys = ("IMMA", "ISETP", "SEL", "SHF", "IADD3", "LDG", "LDS", "STS",
+            "STG")
+    return f"{len(ops)} instructions; " + ", ".join(
+        f"{k} {ops.count(k)}" for k in keys)
 
 
 def random_batch(pipe, frames, seed, dev):
@@ -242,7 +309,7 @@ def main() -> int:
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
     sources = ("grain_natural", "grain_tiled", "expand_words",
-               "probe_budget", "probe_pipe")
+               "probe_budget", "probe_pipe", "probe_dot")
     _kernels.build(sources)
     for name in sources:
         _kernels.load(name)
@@ -295,6 +362,9 @@ def main() -> int:
           f"{nbytes / (min(ms_k, ms_k2) * 1e-3) / 1e12:.3f} TB/s; "
           f"card {card}")
     kernel_ms, plain_ms = min(ms_k, ms_k2), min(ms_p, ms_p2)
+    tbytes = tensor_bytes(*(tables[k] for k in ("pattern", "slut", "plut",
+                                                "scalars")))
+    k1_bound = byte_bound_ms(nbytes + lat32.numel() * 4 + tbytes)
     del planes, lat, lat32, lat_up
 
     # 4. other geometries (kernel vs plain, frames 0, 1, 3)
@@ -420,6 +490,9 @@ def main() -> int:
           f"{nbytes / (min(ms_tk, ms_tk2) * 1e-3) / 1e12:.3f} TB/s; "
           f"card {card}")
     tiled_ms, tiled_plain_ms = min(ms_tk, ms_tk2), min(ms_tp, ms_tp2)
+    k3_bound = byte_bound_ms(sum(2 * tensor_bytes(args[0])
+                                 + tensor_bytes(*args[1:])
+                                 for args, _ in strips))
     del planes, lat, lat_up, strips
 
     # 8. tiled engine, other geometries (frames 0, 1, 3)
@@ -680,6 +753,10 @@ def main() -> int:
                         (slat, swords))
     k5_plain_ms = cuda_ms(lambda: probe_budget.budget_batch_plain(
         *state0, slat, dtables), 5, warmup=1)
+    # K5's full variant and K4 move what K1 moves on the same state
+    k45_bound = byte_bound_ms(2 * tensor_bytes(*state0) + tensor_bytes(
+        swords, *(dtables[k] for k in ("pattern", "slut", "plut",
+                                       "scalars"))))
     phase("budget", f"card {card}; full variant {k5_ms:.4f} ms, its plain "
           f"version {k5_plain_ms:.3f} ms per {W}x{H} step of {F} frames")
     bcounter.launches = 0
@@ -749,32 +826,173 @@ def main() -> int:
           f"bit-exact; card {card}")
     del state0, slat, swords
 
+    # 17. the one-hot dot probe (K6) and its gather mode
+    from versatilefilmgrain_tpu_torch.tools import (_dot, probe_dot,
+                                                    probe_dot2,
+                                                    probe_dotscale)
+    dcounter = _dot.dot_probe_cuda
+    ys, ts, ps, cs = _dot.dot2_inputs(21, 2, 32, 160, device=dev)
+    exact_small("dot 160x32", {m: (_dot.make_step(m, ts, ps),
+                                   _dot.plain(m, ys, ts, ps))
+                               for m in probe_dot.MODES}, ys)
+    phase("dot", f"2 frames of 160x32: {', '.join(probe_dot.MODES)} == "
+          f"plain (max |err| 0)")
+    y, t, pat = _dot.dot_inputs(0, device=dev)
+    dcounter.launches = 0
+    k6 = probe_dot.run(y, t, pat)
+    k6_launches = dcounter.launches
+    check(k6_launches > 0, "the K6 run never launched the dot kernel")
+    check(all(r["exact"] for n, r in k6.items() if n != "equal")
+          and all(k6["equal"].values()), f"the K6 run at {W}x{H} found a "
+          f"mode differing from its plain version, or from int8")
+    k6_want = _dot.onehot_plain(y, t, pat)
+    k6_err = max_err(_dot.make_step("int8", t, pat)(y)[0], k6_want)
+    plain6 = {"onehot": cuda_ms(lambda: _dot.onehot_plain(y, t, pat), 3,
+                                warmup=1),
+              "none": cuda_ms(lambda: _dot.none_plain(y), 10)}
+    # library yardsticks, timed only: the same products in one call each
+    oh = torch.zeros(t.numel(), _dot.K, dtype=torch.int8, device=dev)
+    oh.scatter_(1, t.reshape(-1, 1).long(), 1)
+    lib6 = {"int8": int_mm_ms(oh, pat)}
+    ohx = oh.to(torch.bfloat16)
+    patx = pat.to(torch.bfloat16).t()
+    lib6["bf16"] = cuda_ms(lambda: torch.matmul(ohx, patx), 5, warmup=1)
+    del ohx
+    ohx = oh.to(torch.float32)
+    del oh
+    patx = pat.to(torch.float32).t()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    lib6["f32"] = cuda_ms(lambda: torch.matmul(ohx, patx), 5, warmup=1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    del ohx, patx
+    tl = t.long()
+    lib6["gather"] = cuda_ms(lambda: pat[:, tl], 10)
+    del tl
+    torch.cuda.empty_cache()
+    phase("dot", f"K6 at {W}x{H}, {F} frames: {k6_launches} launches, every "
+          f"mode exact, bf16 == int8 == gather; plain {plain6['onehot']:.3f} "
+          f"ms (one-hot product), {plain6['none']:.4f} ms (none); library "
+          f"(product only): torch._int_mm {lib6['int8']:.4f} ms, bf16 "
+          f"matmul {lib6['bf16']:.4f} ms, TF32 matmul (allow_tf32 True) "
+          f"{lib6['f32']:.4f} ms, pat[:, t] {lib6['gather']:.4f} ms; card "
+          f"{card}")
+    del y, t, pat, k6_want
+
+    # 18. build against multiply (K7)
+    exact_small("dot2 160x32", {m: (_dot.make_step(m, ts, ps, cs),
+                                    _dot.plain(m, ys, ts, ps, cs))
+                                for m in probe_dot2.MODES}, ys)
+    phase("dot2", f"2 frames of 160x32: {', '.join(probe_dot2.MODES)} == "
+          f"plain (max |err| 0)")
+    y, t, pat, constoh = _dot.dot2_inputs(0, device=dev)
+    dcounter.launches = 0
+    k7 = probe_dot2.run(y, t, pat, constoh)
+    k7_launches = dcounter.launches
+    check(k7_launches > 0, "the K7 run never launched the dot kernel")
+    check(all(r["exact"] for r in k7.values()), f"the K7 run at {W}x{H} "
+          f"found a mode differing from its plain version")
+    k7_err = max_err(_dot.make_step("dotconst", t, pat, constoh)(y)[0],
+                     _dot.dotconst_plain(y, pat, constoh))
+    plain7 = {m: cuda_ms(lambda m=m: _dot.plain(m, y, t, pat, constoh), 3,
+                         warmup=1) for m in ("build", "dotconst")}
+    ohr = constoh.t().contiguous().repeat(F * R4, 1)
+    lib7 = int_mm_ms(ohr, pat)
+    del ohr
+    torch.cuda.empty_cache()
+    phase("dot2", f"K7 at {W}x{H}, {F} frames: {k7_launches} launches, "
+          f"every mode exact; plain build {plain7['build']:.3f} ms, "
+          f"dotconst {plain7['dotconst']:.3f} ms; library torch._int_mm "
+          f"(dotconst product) {lib7:.4f} ms; card {card}")
+    phase("dot2", "build instance, what the compiler kept: "
+          + sass_counts(_kernels, "probe_dot", "dot_kernelILi5E"))
+    del y, t, pat, constoh
+
+    # 19. the dense product against M (K8)
+    yss, ohs, pss = _dot.dotscale_inputs(23, 2, 32, 160, device=dev)
+    exact_small("dotscale 160x32", {
+        f"M={m}": (_dot.make_step("dotconst", None, p, ohs,
+                                  clip_hi=_dot.CLIP_HI_SCALE,
+                                  rows=_dot.scale_rows(m)),
+                   _dot.dotconst_plain(yss, p, ohs,
+                                       clip_hi=_dot.CLIP_HI_SCALE,
+                                       rows=_dot.scale_rows(m)))
+        for m, p in pss.items()}, yss)
+    phase("dotscale", f"2 frames of 160x32: M = "
+          f"{', '.join(map(str, pss))} == plain (max |err| 0)")
+    y, oh, pats = _dot.dotscale_inputs(0, device=dev)
+    dcounter.launches = 0
+    k8 = probe_dotscale.run(y, oh, pats)
+    k8_launches = dcounter.launches
+    check(k8_launches > 0, "the K8 run never launched the dot kernel")
+    check(all(r["exact"] for r in k8.values()), f"the K8 run at {W}x{H} "
+          f"found an M differing from its plain version")
+    kw8 = dict(clip_hi=_dot.CLIP_HI_SCALE, rows=_dot.scale_rows(256))
+    k8_err = max_err(_dot.make_step("dotconst", None, pats[256], oh,
+                                    **kw8)(y)[0],
+                     _dot.dotconst_plain(y, pats[256], oh, **kw8))
+    plain8, lib8 = {}, {}
+    ohr = oh.t().contiguous().repeat(F * R4, 1)
+    for m, p in pats.items():
+        kw = dict(clip_hi=_dot.CLIP_HI_SCALE, rows=_dot.scale_rows(m))
+        plain8[m] = cuda_ms(lambda: _dot.dotconst_plain(y, p, oh, **kw), 5,
+                            warmup=1)
+        lib8[m] = int_mm_ms(ohr, p)
+    del ohr
+    torch.cuda.empty_cache()
+    phase("dotscale", f"K8 at {W}x{H}, {F} frames: {k8_launches} launches, "
+          f"every M exact; plain / torch._int_mm (product only) ms: "
+          + ", ".join(f"M={m} {plain8[m]:.3f} / {lib8[m]:.4f}"
+                      for m in pats) + f"; card {card}")
+    del y, oh, pats
+
+    def dot_row(name, replaces, mode, res, launches, err, plain, library):
+        r = res[mode]
+        return {"name": name, "route": "cuda",
+                "source": "versatilefilmgrain_tpu_torch/csrc/probe_dot.cu",
+                "replaces": replaces, "mode": mode, "launches": launches,
+                "max_abs_err": err, "ms": r["ms"], "plain_ms": plain,
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": library}
+
     print(json.dumps({"kernels": [{
         "name": "grain_natural", "route": "cuda",
         "source": "versatilefilmgrain_tpu_torch/csrc/grain_natural.cu",
         "replaces": "versatilefilmgrain_tpu/ops/grain_natural.py:584",
         "launches": launches, "max_abs_err": err4k,
-        "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k1_bound,
+        "bound_by": "bytes", "library_ms": None}, {
         "name": "grain_tiled", "route": "cuda",
         "source": "versatilefilmgrain_tpu_torch/csrc/grain_tiled.cu",
         "replaces": "versatilefilmgrain_tpu/ops/grain_pallas.py:189",
         "launches": tlaunches, "max_abs_err": max(terr, terr_n),
-        "ms": tiled_ms, "plain_ms": tiled_plain_ms}, {
+        "ms": tiled_ms, "plain_ms": tiled_plain_ms, "bound_ms": k3_bound,
+        "bound_by": "bytes", "library_ms": None}, {
         "name": "expand_words", "route": "cuda",
         "source": "versatilefilmgrain_tpu_torch/csrc/expand_words.cu",
         "replaces": "versatilefilmgrain_tpu/ops/grain_natural.py:801",
         "launches": mesh_k2_launches, "max_abs_err": err_k2,
-        "ms": k2_ms, "plain_ms": k2_plain_ms}, {
+        "ms": k2_ms, "plain_ms": k2_plain_ms,
+        "bound_ms": byte_bound_ms(wbytes), "bound_by": "bytes",
+        "library_ms": None}, {
         "name": "probe_budget", "route": "cuda",
         "source": "versatilefilmgrain_tpu_torch/csrc/probe_budget.cu",
         "replaces": "tools/probe_budget.py:134",
         "launches": k5_launches, "max_abs_err": err_k5,
-        "ms": k5_ms, "plain_ms": k5_plain_ms}, {
+        "ms": k5_ms, "plain_ms": k5_plain_ms, "bound_ms": k45_bound,
+        "bound_by": "bytes", "library_ms": None}, {
         "name": "probe_pipe", "route": "cuda",
         "source": "versatilefilmgrain_tpu_torch/csrc/probe_pipe.cu",
         "replaces": "tools/probe_ohpipe.py:139",
         "launches": k4_launches, "max_abs_err": err_k4,
-        "ms": min(t4[1], t4[2]), "plain_ms": k4_plain_ms}]}), flush=True)
+        "ms": min(t4[1], t4[2]), "plain_ms": k4_plain_ms,
+        "bound_ms": k45_bound, "bound_by": "bytes", "library_ms": None},
+        dot_row("probe_dot", "tools/probe_dot.py:38", "int8", k6,
+                k6_launches, k6_err, plain6["onehot"], lib6["int8"]),
+        dot_row("probe_dot2", "tools/probe_dot2.py:38", "dotconst", k7,
+                k7_launches, k7_err, plain7["dotconst"], lib7),
+        dot_row("probe_dotscale", "tools/probe_dotscale.py:22", "M=256",
+                k8, k8_launches, k8_err, plain8[256], lib8[256])]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

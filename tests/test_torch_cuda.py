@@ -1,6 +1,7 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
-K1 (lattice and lane-word input, shard boot), K2, K3 and the two probes of
-K1 (K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu).
+K1 (lattice and lane-word input, shard boot), K2, K3, the two probes of K1
+(K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu) and the one-hot dot
+probes (K6-K8, csrc/probe_dot.cu).
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one (the kernel has no CPU mode; the CPU tests hold the plain
@@ -262,3 +263,47 @@ def test_pipe_matches_k1(kind, cuda_device):
                                              csubx=2, csuby=2)
     torch.cuda.synchronize()
     assert torch.equal(got, want[0])
+
+
+@pytest.mark.parametrize("width", [256, 160])
+@pytest.mark.parametrize("mode", ["none", "int8", "bf16", "f32", "gather",
+                                  "build", "dotconst"])
+def test_dot_probe_matches_plain(mode, width, cuda_device):
+    """Every mode of the dot probe kernel (csrc/probe_dot.cu, K6 and K7) ==
+    its plain version, one and two block rows per thread block, at a width
+    that is a multiple of 128 and one that is not."""
+    from versatilefilmgrain_tpu_torch.tools import _dot
+    y, t, pat, constoh = _dot.dot2_inputs(13, 3, 48, width,
+                                          device=cuda_device)
+    want = _dot.plain(mode, y, t, pat, constoh)
+    for strips in (1, 2):
+        before = _dot.dot_probe_cuda.launches
+        got = _dot.make_step(mode, t, pat, constoh, strips=strips)(y)[0]
+        torch.cuda.synchronize()
+        assert _dot.dot_probe_cuda.launches == before + 1
+        assert torch.equal(got, want), f"{mode} W={width} strips {strips}"
+
+
+@pytest.mark.parametrize("mm", [16, 64, 128, 144, 160, 256])
+def test_dotscale_probe_matches_plain(mm, cuda_device):
+    """K8's product at every M == its plain version."""
+    from versatilefilmgrain_tpu_torch.tools import _dot
+    y, oh, pats = _dot.dotscale_inputs(17, 3, 48, 160, ms=(mm,),
+                                       device=cuda_device)
+    kw = dict(clip_hi=_dot.CLIP_HI_SCALE, rows=_dot.scale_rows(mm))
+    got = _dot.make_step("dotconst", None, pats[mm], oh, **kw)(y)[0]
+    want = _dot.dotconst_plain(y, pats[mm], oh, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"M={mm}"
+
+
+def test_dot_probe_out_of_range_indices(cuda_device):
+    """An index outside [0, 768) matches no one-hot row in every mode that
+    reads t, as in the plain versions (the gather reads no bank row)."""
+    from versatilefilmgrain_tpu_torch.tools import _dot
+    y, t, pat, _ = _dot.dot2_inputs(19, 2, 32, 160, device=cuda_device)
+    t[0, 0, 0, :6] = torch.tensor([-1, 768, 5000, -300, 767, 0])
+    for mode in ("int8", "bf16", "f32", "gather", "build"):
+        got = _dot.make_step(mode, t, pat)(y)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, _dot.plain(mode, y, t, pat)), mode

@@ -1,0 +1,260 @@
+"""The port's one-hot dot probes (K6, K7, K8) against the JAX probes, bit
+for bit.
+
+The JAX package's tools/probe_dot.py, probe_dot2.py and probe_dotscale.py
+are loaded by path; their module ``W`` is set to the test's width and their
+own ``kernel`` runs in the BlockSpecs of their ``main`` with
+``interpret=True``, at 2 frames of 32 lines and widths 256 and 160 (not a
+multiple of 128).  On CPU tensors the port's probe steps run their plain
+versions, which must equal the JAX kernels exactly (tolerance 0: every
+value is an integer).  The kernel itself (csrc/probe_dot.cu) runs only on
+the card: tests/test_torch_cuda.py and chip_smoke.py hold it against the
+same plain versions.
+"""
+
+import functools
+import importlib.util
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from versatilefilmgrain_tpu_torch.tools import (_dot, probe_dot, probe_dot2,
+                                                probe_dotscale)
+
+from torch_port_cases import REPO
+
+FR, HT = 2, 32
+WIDTHS = [256, 160]
+K, M = _dot.K, _dot.M
+
+
+@pytest.fixture(scope="module")
+def jax_probes():
+    """The three JAX probe modules, loaded by path."""
+    mods = {}
+    for name in ("probe_dot", "probe_dot2", "probe_dotscale"):
+        spec = importlib.util.spec_from_file_location(
+            f"_jax_{name}", os.path.join(REPO, "tools", f"{name}.py"))
+        m = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(m)
+        mods[name] = m
+    return mods
+
+
+def _specs(m, width, consts):
+    """main()'s strip, per-lane and constant BlockSpecs at ``width``."""
+    vmem = dict(memory_space=m.pltpu.VMEM)
+    strip = m.pl.BlockSpec((1, 16, width), lambda f, r: (f, r, 0), **vmem)
+    perlane = m.pl.BlockSpec((1, 1, 1, width), lambda f, r: (f, r, 0, 0),
+                             **vmem)
+    const = [m.pl.BlockSpec(shape, lambda f, r: (0, 0), **vmem)
+             for shape in consts]
+    return strip, perlane, const
+
+
+def _jax_call(m, kern, y, ins, in_specs, strip):
+    out = m.pl.pallas_call(
+        kern, grid=(y.shape[0], y.shape[1] // 16), in_specs=in_specs,
+        out_specs=strip,
+        out_shape=jax.ShapeDtypeStruct(tuple(y.shape), jnp.uint16),
+        interpret=True)(*(jnp.asarray(a.numpy()) for a in ins))
+    return np.asarray(out)
+
+
+def _jax_k6(m, mode, y, t, pat, monkeypatch):
+    width = y.shape[2]
+    monkeypatch.setattr(m, "W", width)
+    strip, perlane, (const2,) = _specs(m, width, [(M, K)])
+    return _jax_call(m, functools.partial(m.kernel, mode=mode), y,
+                     (y, t, pat), [strip, perlane, const2], strip)
+
+
+def _jax_k7(m, mode, y, t, pat, constoh, monkeypatch):
+    width = y.shape[2]
+    monkeypatch.setattr(m, "W", width)
+    strip, perlane, (const2, constspec) = _specs(m, width,
+                                                 [(M, K), (K, width)])
+    return _jax_call(m, functools.partial(m.kernel, mode=mode), y,
+                     (y, t, pat, constoh),
+                     [strip, perlane, const2, constspec], strip)
+
+
+def _jax_k8(m, mm, y, oh, pat, monkeypatch):
+    width = y.shape[2]
+    monkeypatch.setattr(m, "W", width)
+    strip, _, (patspec, ohspec) = _specs(m, width, [(mm, K), (K, width)])
+    return _jax_call(m, functools.partial(m.kernel, M=mm), y, (y, pat, oh),
+                     [strip, patspec, ohspec], strip)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("mode", probe_dot.MODES[:4])
+def test_k6_plain_matches_jax(mode, width, jax_probes, monkeypatch):
+    y, t, pat = _dot.dot_inputs(3, FR, HT, width)
+    want = _jax_k6(jax_probes["probe_dot"], mode, y, t, pat, monkeypatch)
+    got = _dot.make_step(mode, t, pat)(y)[0]
+    assert got.dtype == torch.uint16 and got.shape == y.shape
+    assert np.array_equal(got.numpy(), want), f"{mode} W={width}"
+    if mode != "none":   # the product reached the output
+        assert not np.array_equal(want, y.numpy())
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+def test_gather_equals_jax_int8(width, jax_probes, monkeypatch):
+    """gather (not a TPU mode) == the TPU int8 one-hot dot."""
+    y, t, pat = _dot.dot_inputs(5, FR, HT, width)
+    want = _jax_k6(jax_probes["probe_dot"], "int8", y, t, pat, monkeypatch)
+    got = _dot.make_step("gather", t, pat)(y)[0]
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("mode", probe_dot2.MODES)
+def test_k7_plain_matches_jax(mode, width, jax_probes, monkeypatch):
+    y, t, pat, constoh = _dot.dot2_inputs(7, FR, HT, width)
+    want = _jax_k7(jax_probes["probe_dot2"], mode, y, t, pat, constoh,
+                   monkeypatch)
+    got = _dot.make_step(mode, t, pat, constoh)(y)[0]
+    assert np.array_equal(got.numpy(), want), f"{mode} W={width}"
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("mm", _dot.SCALE_MS)
+def test_k8_plain_matches_jax(mm, width, jax_probes, monkeypatch):
+    y, oh, pats = _dot.dotscale_inputs(11, FR, HT, width, ms=(mm,))
+    want = _jax_k8(jax_probes["probe_dotscale"], mm, y, oh, pats[mm],
+                   monkeypatch)
+    got = _dot.make_step("dotconst", None, pats[mm], oh,
+                         clip_hi=_dot.CLIP_HI_SCALE,
+                         rows=_dot.scale_rows(mm))(y)[0]
+    assert np.array_equal(got.numpy(), want), f"M={mm} W={width}"
+
+
+@pytest.mark.parametrize("mode", ["int8", "build"])
+def test_out_of_range_indices_match_no_row(mode, jax_probes, monkeypatch):
+    """An index outside [0, K) adds nothing, as in the JAX kernels."""
+    y, t, pat, constoh = _dot.dot2_inputs(9, FR, HT, 160)
+    t[0, 0, 0, :4] = torch.tensor([-1, K, 5000, -300])
+    want = _jax_k7(jax_probes["probe_dot2"], mode, y, t, pat, constoh,
+                   monkeypatch)
+    got = _dot.make_step(mode, t, pat)(y)[0]
+    assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(want[0, :16, :4], y.numpy()[0, :16, :4])
+
+
+def test_inputs_draw_in_jax_main_order():
+    """Each input function replays its JAX main's numpy draws."""
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 1024, (FR, HT, 160), np.uint16)
+    t = rng.integers(0, K, (FR, HT // 16, 1, 160), np.int32)
+    pat = rng.integers(-128, 128, (M, K), np.int8)
+    const = (rng.integers(0, 2, (K, 160))
+             * rng.integers(0, 2, (K, 160))).astype(np.int8)
+    for got, want in zip(_dot.dot2_inputs(0, FR, HT, 160),
+                         (y, t, pat, const)):
+        assert got.numpy().dtype == want.dtype
+        assert np.array_equal(got.numpy(), want)
+    for got, want in zip(_dot.dot_inputs(0, FR, HT, 160), (y, t, pat)):
+        assert np.array_equal(got.numpy(), want)
+    rng = np.random.default_rng(0)
+    y = rng.integers(0, 1024, (FR, HT, 160), np.uint16)
+    oh = rng.integers(0, 2, (K, 160)).astype(np.int8)
+    pats = [rng.integers(-128, 128, (mm, K), np.int8) for mm in _dot.SCALE_MS]
+    gy, goh, gpats = _dot.dotscale_inputs(0, FR, HT, 160)
+    assert np.array_equal(gy.numpy(), y) and np.array_equal(goh.numpy(), oh)
+    assert list(gpats) == list(_dot.SCALE_MS)
+    for g, w in zip(gpats.values(), pats):
+        assert np.array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("mode,want_ms,by", [
+    ("int8", 0.4635, "operations"), ("dotconst", 0.4635, "operations"),
+    ("bf16", 0.9273, "operations"), ("f32", 1.8530, "operations"),
+    ("gather", 0.0842, "bytes"), ("build", 0.0842, "bytes"),
+    ("none", 0.0792, "bytes")])
+def test_bounds_at_4k(mode, want_ms, by):
+    """The computed bounds of one 8-frame 3840x2160 step (meta tensors: no
+    memory is allocated)."""
+    meta = dict(device="meta")
+    y = torch.empty(8, 2160, 3840, dtype=torch.uint16, **meta)
+    t = torch.empty(8, 135, 1, 3840, dtype=torch.int32, **meta)
+    pat = torch.empty(M, K, dtype=torch.int8, **meta)
+    oh = torch.empty(K, 3840, dtype=torch.int8, **meta)
+    ms, got_by = _dot.bound(mode, y, t, pat, oh)
+    assert got_by == by and ms == pytest.approx(want_ms, abs=2e-4)
+
+
+@pytest.mark.parametrize("mm,want_ms,by", [
+    (16, 0.0801, "bytes"), (64, 0.2060, "operations"),
+    (256, 0.8241, "operations")])
+def test_dotscale_bounds_at_4k(mm, want_ms, by):
+    meta = dict(device="meta")
+    y = torch.empty(8, 2160, 3840, dtype=torch.uint16, **meta)
+    pat = torch.empty(mm, K, dtype=torch.int8, **meta)
+    oh = torch.empty(K, 3840, dtype=torch.int8, **meta)
+    ms, got_by = _dot.bound("dotconst", y, None, pat, oh)
+    assert got_by == by and ms == pytest.approx(want_ms, abs=2e-4)
+
+
+@pytest.mark.parametrize("mode", list(_dot.MODES))
+def test_wrapper_raises_on_cpu(mode):
+    y, t, pat, constoh = _dot.dot2_inputs(1, FR, HT, 160)
+    launches = _dot.dot_probe_cuda.launches
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        _dot.dot_probe_cuda(y, t, pat, constoh.t().contiguous(), mode=mode)
+    assert _dot.dot_probe_cuda.launches == launches
+
+
+@pytest.mark.parametrize("case,match", [
+    ("y int16", "y: expected"), ("y ragged height", r"\(F, 16R, W\)"),
+    ("t int64", "t: expected"), ("t missing", "needs t"),
+    ("pat 128 rows", "no int8 instance"), ("oh_t (K, W)", "oh_t: expected"),
+    ("rows of K8", "no dotconst instance"), ("mode", "unknown mode"),
+    ("strips 0", "strips 0")])
+def test_wrapper_checks_inputs(case, match):
+    y, t, pat, constoh = _dot.dot2_inputs(1, FR, HT, 160)
+    oh_t = constoh.t().contiguous()
+    kw = dict(mode="int8")
+    if case == "y int16":
+        y = y.to(torch.int16)
+    elif case == "y ragged height":
+        y = y[:, :20]
+    elif case == "t int64":
+        t = t.long()
+    elif case == "t missing":
+        t = None
+    elif case == "pat 128 rows":
+        pat = pat[:128].contiguous()
+    elif case == "oh_t (K, W)":
+        oh_t, kw = constoh, dict(mode="dotconst")
+    elif case == "rows of K8":
+        kw = dict(mode="dotconst", rows=_dot.scale_rows(M))
+        pat = torch.cat([pat, pat[:16]])
+    elif case == "mode":
+        kw = dict(mode="int4")
+    elif case == "strips 0":
+        kw = dict(mode="int8", strips=0)
+    with pytest.raises(ValueError, match=match):
+        _dot.dot_probe_cuda(y, t, pat, oh_t, **kw)
+
+
+@pytest.mark.parametrize("probe", [probe_dot, probe_dot2, probe_dotscale])
+def test_probe_main_refuses_cpu(probe, monkeypatch, capsys):
+    """Without a card the probes time nothing and exit 2."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert probe.main([]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_plain_products_restore_tf32():
+    """The plain products leave TF32 as they found it."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    y, t, pat, constoh = _dot.dot2_inputs(2, FR, HT, 160)
+    _dot.onehot_plain(y, t, pat)
+    _dot.dotconst_plain(y, pat, constoh)
+    assert torch.backends.cuda.matmul.allow_tf32 == before

@@ -2,8 +2,9 @@
 through the port's CLI (tests/golden/checksums.json), and the 4:2:2 / 4:4:4
 format goldens (tests/golden/format_checksums.json) through the port's
 library API, as tests/test_golden.py and tests/test_format_golden.py do for
-the JAX package.  On a machine without a card the CLI's ``--engine auto``
-runs the plain torch engine and the step runs the kernel's plain version."""
+the JAX package.  The CLI runs with ``--device cpu``, where ``--engine
+auto`` is the plain torch engine, and the step runs the kernel's plain
+version on CPU tensors."""
 
 import hashlib
 import json

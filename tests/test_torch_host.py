@@ -74,7 +74,8 @@ def test_pipeline_regs_match_jax_with_gain_and_seed():
     ref = mod(JAX_PKG, "pipeline").GrainPipeline(256, 192, 10, 0,
                                                  engine="fast", **kw)
     got = mod(TORCH_PKG, "pipeline").GrainPipeline(256, 192, 10, 0,
-                                                   engine="ref", **kw)
+                                                   engine="ref",
+                                                   device="cpu", **kw)
     for p in (ref, got):
         p.maybe_switch_config(0)
     for field in ("pattern", "slut", "plut"):

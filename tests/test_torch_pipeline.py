@@ -101,21 +101,34 @@ def test_tables_follow_config_generation():
 
 
 def test_engine_selection_without_card(monkeypatch, tmp_path):
+    """No device means the card: without one, the pipeline and the CLI
+    raise, naming CUDA.  ``device="cpu"`` runs the plain engines there;
+    the CUDA-only engine still raises on the CPU."""
     import torch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    pipe = GrainPipeline(256, 144, 10, 0)
+    for kw in ({}, {"device": "cuda"}, {"engine": "fast"}):
+        with pytest.raises(RuntimeError, match="CUDA.*device=\"cpu\""):
+            GrainPipeline(256, 144, 10, 0, **kw)
+    pipe = GrainPipeline(256, 144, 10, 0, device="cpu")
     assert (pipe.device.type, pipe.engine) == ("cpu", "ref")
-    assert GrainPipeline(256, 144, 10, 0, engine="fast").device.type == "cpu"
+    assert GrainPipeline(256, 144, 10, 0, engine="fast",
+                         device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
-        GrainPipeline(256, 144, 10, 0, engine="natural")
-    tiled = GrainPipeline(256, 144, 10, 0, engine="pallas")
+        GrainPipeline(256, 144, 10, 0, engine="natural", device="cpu")
+    tiled = GrainPipeline(256, 144, 10, 0, engine="pallas", device="cpu")
     assert (tiled.device.type, tiled.engine) == ("cpu", "pallas")
     assert "win_luma" in tiled._tables()
     with pytest.raises(ConfigError, match="unknown engine"):
-        GrainPipeline(256, 144, 10, 0, engine="tiled")
+        GrainPipeline(256, 144, 10, 0, engine="tiled", device="cpu")
     src = tmp_path / "in.yuv"
     src.write_bytes(bytes(256 * 144 * 3))
+    args = ["vfgs-torch", "-w", "256", "-h", "144", "-b", "8"]
+    files = [str(src), str(tmp_path / "o.yuv")]
     with pytest.raises(RuntimeError, match="CUDA"):
-        cli.main(["vfgs-torch", "-w", "256", "-h", "144", "-b", "8",
-                  "--engine", "natural", str(src), str(tmp_path / "o.yuv")])
+        cli.main(args + ["--engine", "natural", "--device", "cpu"] + files)
+    with pytest.raises(RuntimeError, match="--device cpu"):
+        cli.main(args + files)
+    assert cli.main(args + ["--device", "tpu"] + files) == 1
+    assert cli.main(args + ["--device", "cpu"] + files) == 0
+    assert (tmp_path / "o.yuv").stat().st_size == src.stat().st_size
     assert grain_natural.grain_plane_cuda.launches == 0

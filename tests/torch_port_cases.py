@@ -69,10 +69,11 @@ def golden_cli_args(case, inp, out):
     return [rebase(a) for a in cli_args(case, inp, out)]
 
 
-def golden_output(cli_main, entry, engine, tmpdir):
+def golden_output(cli_main, entry, engine, tmpdir, device="cpu"):
     """Run one golden CLI case (an entry of tests/golden/checksums.json)
-    through ``cli_main`` with ``--engine engine``; returns the output bytes.
-    Inputs are generated once per geometry into ``tmpdir``."""
+    through ``cli_main`` with ``--engine engine --device device``; returns
+    the output bytes.  Inputs are generated once per geometry into
+    ``tmpdir``."""
     from gen_golden import FMT_NAMES
     from gen_input import make_input_yuv
     case = entry["case"]
@@ -83,7 +84,7 @@ def golden_output(cli_main, entry, engine, tmpdir):
         make_input_yuv(inp, case["w"], case["h"], case["depth"], case["fmt"],
                        case["in_frames"])
     out = os.path.join(tmpdir, f"out_{engine}.yuv")
-    assert cli_main(["vfgs-torch", "--engine", engine]
+    assert cli_main(["vfgs-torch", "--engine", engine, "--device", device]
                     + golden_cli_args(case, inp, out)) == 0
     with open(out, "rb") as f:
         return f.read()

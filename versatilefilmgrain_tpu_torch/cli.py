@@ -52,6 +52,8 @@ def help_text(name: str) -> str:
         "                                   (tiled engine: CUDA kernel on a card, plain\n"
         "                                   torch elsewhere), ref or fast (plain torch)\n"
         "                                   [auto: natural on CUDA, ref elsewhere]\n"
+        "   --device       <name>           Device: cuda (raises without a card) or cpu\n"
+        "                                   (plain torch engines) [cuda]\n"
         "   --grain-offset <value>          Global grain-state frame offset (use with -s\n"
         "                                   for bit-exact frame sharding) [0]\n"
         "   --profile      <dir>            Write a torch.profiler trace to <dir>/trace.json\n"
@@ -71,6 +73,7 @@ def main(argv=None) -> int:
     seed, gain = 0, 100
     batch = 4
     engine = "auto"
+    device = "cuda"
     profile_dir = None
     grain_offset = 0
     verbose = False
@@ -122,6 +125,11 @@ def main(argv=None) -> int:
             if engine not in ("auto", "fast", "pallas", "natural", "ref"):
                 print(f"Unknown engine {engine}")
                 err = True
+        elif pl == "--device":  # extension: where frames are grained
+            device = val()
+            if device not in ("cuda", "cpu"):
+                print(f"Unknown device {device}")
+                err = True
         elif pl == "--profile":  # extension: torch profiler trace directory
             profile_dir = val()
         elif pl == "--grain-offset":  # extension: global grain-state offset
@@ -153,7 +161,7 @@ def main(argv=None) -> int:
     try:
         pipe = GrainPipeline(width, height, depth, fmt, gain=gain, seed=seed,
                              seek=seek, configs=configs, engine=engine,
-                             grain_offset=grain_offset)
+                             grain_offset=grain_offset, device=device)
     except ConfigError as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1

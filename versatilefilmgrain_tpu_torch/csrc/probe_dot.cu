@@ -1,0 +1,469 @@
+// The one-hot dot probes of the grain kernel's window fetch, written for
+// Hopper (sm_90a): one source, one template instance per (mode, M, slices).
+//
+// Replaces three TPU kernels of tools/ (each a `kernel` run by its `main`):
+//   K6 tools/probe_dot.py:38       modes none, int8, bf16, f32
+//   K7 tools/probe_dot2.py:38      modes none, int8, build, dotconst
+//   K8 tools/probe_dotscale.py:22  dotconst at M = 16, 64, 128, 144, 160, 256
+// For every (frame f, 16-line block row r) of a (F, 16R, W) uint16 plane y
+// they compute, with `hi` = 4092 (K6, K7) or 4095 (K8),
+//   out[f, 16r + i, w] = clip(y[f, 16r + i, w] + s[i, w], 0, hi),  i < 16,
+//   s[i, w] = sum over slices p of cand[p * stride + i, w],
+// where `stride`, `slices` = 18, 8 (K6, K7) or 16, M / 16 (K8) and cand is
+//   int8/bf16/f32 (and gather): pat(144 x 768 int8) @ onehot(768 x W),
+//                 onehot[k, w] = (k == t[f, r, w]), so cand[m, w] = pat[m, t];
+//   dotconst:     pat(M x 768 int8) @ oh(768 x W 0/1 int8), the same for
+//                 every (f, r), recomputed per (f, r) as the TPU does;
+//   build:        no product: s8[j, w] = sum_{q<8} onehot[96 q + j, w],
+//                 s[i] = sum_{p<8} s8[(i + 2p) mod 16] (the TPU build mode's
+//                 nine stacked copies of s8 read at rows 18p + i);
+//   none:         s = 0.
+// `gather` is not a TPU mode: it reads pat[18p + i, t] straight from the
+// bank in shared memory (K1's way) and equals int8 byte for byte.
+//
+// What bounds it on this card, per 8-frame 3840x2160 step (computed from the
+// H100 SXM data sheet, not measured): y in and out is 265.4 MB and t 16.6 MB,
+// 0.084 ms at 3.35 TB/s (none 0.079 ms); the 144-row product is 917.3 G int8
+// operations, 0.464 ms at 1,979 TOPS, so int8 and dotconst are bound by
+// operations, bf16 at 989 TFLOP/s by 0.927 ms, f32 (TF32) at 495 by 1.853 ms;
+// K8 scales as 6.37 G operations x M.  gather, build and none are bound by
+// bytes.
+//
+// Design.  A thread block of 8 warps owns 128 columns of `strips` block rows
+// of one frame (grid: column tiles x row groups x frames); each warp owns 16
+// columns, two n-tiles of 8.  The product runs on the tensor cores with
+// mma.sync (m16n8k32 s8 -> s32, m16n8k16 bf16 -> f32, m16n8k8 tf32 -> f32),
+// every K step for all M/16 m-tiles, as the TPU's dot does; skipping the
+// steps where the one-hot is zero is the gather's job.  A (the pattern) comes
+// from shared memory: the int8 bank (144 x 768, 110,592 bytes; 196,608 at
+// M = 256) is staged whole in dynamic shared memory once per thread block;
+// the bf16 and f32 banks (221 KB, 442 KB) do not fit, so 128 (bf16) or 64
+// (f32) columns of K are converted from int8 and staged at a time.  Rows are
+// padded by 16 bytes so that a warp's A-fragment loads hit 32 banks.  B (the
+// one-hot) is built in registers from the thread's t value, with no memory
+// access: a thread's B column is one w, and each register holds 4 (int8),
+// 2 (bf16) or 1 (tf32) rows of it, so the fragment is one compare and shift
+// per register.  dotconst reads B from a (W, 768) transposed copy of the
+// constant matrix in device memory (2.9 MB, resident in L2), two 32-bit
+// loads per n-tile and K step.  TF32 is exact here: every input is an
+// integer of at most 8 bits, and every sum is below 2^24 (it is one entry of
+// pat for the one-hot; at most 128 x 768 for dotconst, which runs in int8).
+// The slices start every 18 rows and cross m-tile boundaries, so each
+// accumulator is added (shared-memory atomics) into a 16 x 128 int32 tile of
+// s, then the block writes clip(y + s) with neighbouring threads on
+// neighbouring columns.  Every mma is `asm volatile`, so none is dropped.
+//
+// build: the int8 mode's B-fragment build over every K step, with the mma
+// replaced by the byte sums of the rows the output reads (K steps 3q hold
+// rows 96q .. 96q + 31; the low register holds rows 96q + j, j < 16).  The
+// compiler is free to drop the rest, and does: on the H100 (CUDA 12.8) the
+// build instance uses 40 registers, and its SASS (cuobjdump; chip_smoke.py
+// phase 18 prints the counts) has 432 instructions, 26 ISETP and 17 SEL in
+// all, no IMMA.  Of the 96 register builds a thread writes per strip (24 K
+// steps x 2 registers x 2 n-tiles) it kept the 16 the output reads: one
+// compare per 4 of the 128 one-hot entries per column that the TPU build
+// mode sums.  That is the Hopper answer to "what does building cost": only
+// the compares whose result is read (0.277 ms per 8-frame 4K step against
+// 0.164 ms for none, NVIDIA H100 80GB HBM3 at 700 W).
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC (ops/_kernels.py does this at first use).
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kK = 768;
+constexpr int kThreads = 256;           // 8 warps
+constexpr int kCols = 128;              // columns per thread block
+constexpr int kSBytes = 16 * kCols * 4; // the int32 tile of s
+constexpr int kRowInt8 = kK + 16;       // padded bank row, bytes
+constexpr int kRowChunk = 256 + 16;     // padded bf16/f32 chunk row, bytes
+
+enum Mode { kNone = 0, kInt8 = 1, kBf16 = 2, kF32 = 3, kGather = 4,
+            kBuild = 5, kDotconst = 6 };
+
+__host__ __device__ constexpr bool whole_bank(int mode) {
+  return mode == kInt8 || mode == kGather || mode == kDotconst;
+}
+
+__host__ __device__ constexpr int smem_bytes(int mode, int m) {
+  return kSBytes + (whole_bank(mode) ? m * kRowInt8
+                    : (mode == kBf16 || mode == kF32) ? 144 * kRowChunk : 0);
+}
+
+// The (m, 768) int8 bank into padded shared rows, 16 bytes a thread.
+__device__ __forceinline__ void stage_int8(unsigned char* bank,
+                                           const int8_t* pat, int m) {
+  const uint4* src = reinterpret_cast<const uint4*>(pat);
+  for (int i = threadIdx.x; i < m * (kK / 16); i += kThreads) {
+    const int row = i / (kK / 16), piece = i - row * (kK / 16);
+    *reinterpret_cast<uint4*>(bank + row * kRowInt8 + piece * 16) =
+        __ldg(src + i);
+  }
+}
+
+__device__ __forceinline__ int sbyte(unsigned v, int j) {
+  return static_cast<int8_t>((v >> (8 * j)) & 0xffu);
+}
+
+// bf16 bits of a small integer (exact: |v| < 2^8).
+__device__ __forceinline__ unsigned bf16_bits(int v) {
+  return __float_as_uint(static_cast<float>(v)) >> 16;
+}
+
+// Columns kc0 .. kc0 + chunk - 1 of the 144-row int8 bank, converted to bf16
+// (128 columns) or f32 (64 columns), into padded shared rows.
+template <int kMode>
+__device__ __forceinline__ void stage_chunk(unsigned char* bank,
+                                            const int8_t* pat, int kc0) {
+  constexpr int kWords = (kMode == kBf16 ? 128 : 64) / 4;  // per row
+  for (int i = threadIdx.x; i < 144 * kWords; i += kThreads) {
+    const int row = i / kWords, wd = i - row * kWords;
+    const unsigned v = __ldg(reinterpret_cast<const unsigned*>(
+        pat + row * kK + kc0) + wd);
+    unsigned char* dst = bank + row * kRowChunk;
+    if constexpr (kMode == kBf16) {
+      *reinterpret_cast<uint2*>(dst + wd * 8) = make_uint2(
+          bf16_bits(sbyte(v, 0)) | (bf16_bits(sbyte(v, 1)) << 16),
+          bf16_bits(sbyte(v, 2)) | (bf16_bits(sbyte(v, 3)) << 16));
+    } else {
+      *reinterpret_cast<float4*>(dst + wd * 16) = make_float4(
+          float(sbyte(v, 0)), float(sbyte(v, 1)), float(sbyte(v, 2)),
+          float(sbyte(v, 3)));
+    }
+  }
+}
+
+__device__ __forceinline__ void mma(int (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+template <int kMode>
+__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
+                                    unsigned b0, unsigned b1) {
+  if constexpr (kMode == kBf16) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
+}
+
+// One-hot B registers of an int8 m16n8k32 step at K row k0: the thread's
+// rows are k0 + 4 tig + (0..3) and k0 + 16 + 4 tig + (0..3), one byte each.
+__device__ __forceinline__ void onehot_s8(int tv, int k0, int tig,
+                                          unsigned& b0, unsigned& b1) {
+  const int d = tv - k0 - 4 * tig;
+  b0 = unsigned(d) < 4u ? 1u << (8 * d) : 0u;
+  b1 = unsigned(d - 16) < 4u ? 1u << (8 * (d - 16)) : 0u;
+}
+
+// out = clip(y + s, 0, hi) over one strip's 16 x kCols tile.  kSum: 0 no s,
+// 1 the tile s[i][c], 2 build's s[i] = sum_p s8[(i + 2p) mod 16].
+template <int kSum>
+__device__ __forceinline__ void store_strip(const unsigned short* ys,
+                                            unsigned short* os, const int* s,
+                                            int col0, int width, int hi) {
+  for (int idx = threadIdx.x; idx < 16 * kCols; idx += kThreads) {
+    const int i = idx / kCols, c = idx - i * kCols, col = col0 + c;
+    if (col >= width) continue;
+    const size_t off = size_t(i) * width + col;
+    int v = __ldg(ys + off);
+    if constexpr (kSum == 1) v += s[idx];
+    if constexpr (kSum == 2) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) v += s[((i + 2 * p) & 15) * kCols + c];
+    }
+    os[off] = static_cast<unsigned short>(min(max(v, 0), hi));
+  }
+}
+
+template <int kMode, int kM, int kStride, int kSlices>
+__global__ void __launch_bounds__(kThreads)
+dot_kernel(const unsigned short* __restrict__ y,
+           unsigned short* __restrict__ out, const int* __restrict__ t,
+           const int8_t* __restrict__ pat, const int8_t* __restrict__ oh_t,
+           int rows, int width, int strips, int hi) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* s = reinterpret_cast<int*>(smem);
+  unsigned char* bank = smem + kSBytes;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int col0 = blockIdx.x * kCols;
+  const int r0 = blockIdx.y * strips, r1 = min(rows, r0 + strips);
+
+  if constexpr (whole_bank(kMode)) stage_int8(bank, pat, kM);
+  __syncthreads();
+
+  for (int r = r0; r < r1; ++r) {
+    const size_t strip = size_t(blockIdx.z) * rows + r;
+    const unsigned short* ys = y + strip * 16 * width;
+    unsigned short* os = out + strip * 16 * width;
+
+    if constexpr (kMode == kNone) {
+      store_strip<0>(ys, os, s, col0, width, hi);
+    } else if constexpr (kMode == kGather) {
+      // thread: one column, 8 of the 16 lines
+      const int c = threadIdx.x % kCols, half = threadIdx.x / kCols;
+      const int col = col0 + c;
+      if (col < width) {
+        // an index outside [0, 768) matches no one-hot row: s = 0
+        const int tv = __ldg(t + strip * width + col);
+        const bool hit = unsigned(tv) < unsigned(kK);
+        const signed char* bk =
+            reinterpret_cast<const signed char*>(bank) + (hit ? tv : 0);
+        for (int i = 8 * half; i < 8 * half + 8; ++i) {
+          const size_t off = size_t(i) * width + col;
+          int v = __ldg(ys + off);
+          if (hit) {
+#pragma unroll
+            for (int p = 0; p < kSlices; ++p)
+              v += bk[(p * kStride + i) * kRowInt8];
+          }
+          os[off] = static_cast<unsigned short>(min(max(v, 0), hi));
+        }
+      }
+    } else if constexpr (kMode == kBuild) {
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int cl = warp * 16 + nt * 8 + g, col = col0 + cl;
+        const int tv = col < width ? __ldg(t + strip * width + col) : -1;
+        unsigned s8 = 0;  // four bytes: rows 4 tig + (0..3) of s8
+#pragma unroll
+        for (int ks = 0; ks < kK / 32; ++ks) {
+          unsigned b0, b1;
+          onehot_s8(tv, 32 * ks, tig, b0, b1);
+          if (ks % 3 == 0) s8 += b0;  // rows 96q + j, j < 16
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[(4 * tig + e) * kCols + cl] = (s8 >> (8 * e)) & 0xffu;
+      }
+      __syncthreads();
+      store_strip<2>(ys, os, s, col0, width, hi);
+      __syncthreads();
+    } else {
+      using Acc = typename std::conditional<kMode == kBf16 || kMode == kF32,
+                                            float, int>::type;
+      constexpr int kMT = kM / 16;
+      Acc acc[kMT][2][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[mt][nt][j] = Acc(0);
+      int tv[2];
+      const int8_t* ohc[2];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        const int col = col0 + warp * 16 + nt * 8 + g;
+        tv[nt] = -1;
+        ohc[nt] = nullptr;
+        if (col < width) {
+          if constexpr (kMode == kDotconst)
+            ohc[nt] = oh_t + size_t(col) * kK + 4 * tig;
+          else
+            tv[nt] = __ldg(t + strip * width + col);
+        }
+      }
+      for (int i = threadIdx.x; i < 16 * kCols; i += kThreads) s[i] = 0;
+
+      if constexpr (kMode == kInt8 || kMode == kDotconst) {
+        __syncthreads();
+        const unsigned char* arow = bank + g * kRowInt8 + 4 * tig;
+#pragma unroll 1
+        for (int ks = 0; ks < kK / 32; ++ks) {
+          unsigned b[2][2];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            if constexpr (kMode == kInt8) {
+              onehot_s8(tv[nt], 32 * ks, tig, b[nt][0], b[nt][1]);
+            } else if (ohc[nt] != nullptr) {
+              const unsigned* p =
+                  reinterpret_cast<const unsigned*>(ohc[nt] + 32 * ks);
+              b[nt][0] = __ldg(p);
+              b[nt][1] = __ldg(p + 4);
+            } else {
+              b[nt][0] = b[nt][1] = 0u;
+            }
+          }
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            const unsigned char* ap = arow + mt * 16 * kRowInt8 + 32 * ks;
+            const unsigned a[4] = {
+                *reinterpret_cast<const unsigned*>(ap),
+                *reinterpret_cast<const unsigned*>(ap + 8 * kRowInt8),
+                *reinterpret_cast<const unsigned*>(ap + 16),
+                *reinterpret_cast<const unsigned*>(ap + 8 * kRowInt8 + 16)};
+            mma(acc[mt][0], a, b[0][0], b[0][1]);
+            mma(acc[mt][1], a, b[1][0], b[1][1]);
+          }
+        }
+      } else {
+        constexpr int kChunk = kMode == kBf16 ? 128 : 64;  // K per stage
+        constexpr int kStep = kMode == kBf16 ? 16 : 8;     // K per mma
+        constexpr int kEl = kMode == kBf16 ? 2 : 4;        // bytes
+        const unsigned one = kMode == kBf16 ? 0x3F80u : 0x3F800000u;
+        for (int kc0 = 0; kc0 < kK; kc0 += kChunk) {
+          __syncthreads();  // the previous chunk is consumed
+          stage_chunk<kMode>(bank, pat, kc0);
+          __syncthreads();
+          // the thread's columns: 2 tig (bf16) or tig (tf32), 4 tig bytes
+          const unsigned char* arow = bank + g * kRowChunk + 4 * tig;
+#pragma unroll 1
+          for (int kk = 0; kk < kChunk; kk += kStep) {
+            unsigned b[2][2];
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              if constexpr (kMode == kBf16) {
+                // rows kc0 + kk + 2 tig + (0, 1) and + 8
+                const int d = tv[nt] - kc0 - kk - 2 * tig;
+                b[nt][0] = d == 0 ? one : (d == 1 ? one << 16 : 0u);
+                b[nt][1] = d == 8 ? one : (d == 9 ? one << 16 : 0u);
+              } else {
+                // rows kc0 + kk + tig and + 4
+                const int d = tv[nt] - kc0 - kk - tig;
+                b[nt][0] = d == 0 ? one : 0u;
+                b[nt][1] = d == 4 ? one : 0u;
+              }
+            }
+#pragma unroll
+            for (int mt = 0; mt < kMT; ++mt) {
+              const unsigned char* ap = arow + mt * 16 * kRowChunk + kk * kEl;
+              // second register pair: 8 (bf16) or 4 (tf32) columns on
+              const unsigned a[4] = {
+                  *reinterpret_cast<const unsigned*>(ap),
+                  *reinterpret_cast<const unsigned*>(ap + 8 * kRowChunk),
+                  *reinterpret_cast<const unsigned*>(ap + 16),
+                  *reinterpret_cast<const unsigned*>(ap + 8 * kRowChunk +
+                                                     16)};
+              mma<kMode>(acc[mt][0], a, b[0][0], b[0][1]);
+              mma<kMode>(acc[mt][1], a, b[1][0], b[1][1]);
+            }
+          }
+        }
+      }
+      // fold the slice rows into s: accumulator j holds row g (+8 for
+      // j >= 2), column 2 tig + (j & 1) of its m-tile and n-tile
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = mt * 16 + g + (j >= 2 ? 8 : 0);
+          const int p = row / kStride, i = row - p * kStride;
+          if (p < kSlices && i < 16) {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              int v;
+              if constexpr (kMode == kBf16 || kMode == kF32)
+                v = __float2int_rn(acc[mt][nt][j]);
+              else
+                v = acc[mt][nt][j];
+              atomicAdd(s + i * kCols + warp * 16 + nt * 8 + 2 * tig +
+                            (j & 1), v);
+            }
+          }
+        }
+      __syncthreads();
+      store_strip<1>(ys, os, s, col0, width, hi);
+      __syncthreads();
+    }
+  }
+}
+
+template <int kMode, int kM, int kStride, int kSlices>
+int launch(const void* y, void* out, const void* t, const void* pat,
+           const void* oh_t, int frames, int rows, int width, int strips,
+           int hi, cudaStream_t st) {
+  auto kern = dot_kernel<kMode, kM, kStride, kSlices>;
+  constexpr int smem = smem_bytes(kMode, kM);
+  static bool configured = false;
+  if (smem > 48 * 1024 && !configured) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return int(e);
+    configured = true;
+  }
+  const dim3 grid((width + kCols - 1) / kCols, (rows + strips - 1) / strips,
+                  frames);
+  kern<<<grid, kThreads, smem, st>>>(
+      static_cast<const unsigned short*>(y), static_cast<unsigned short*>(out),
+      static_cast<const int*>(t), static_cast<const int8_t*>(pat),
+      static_cast<const int8_t*>(oh_t), rows, width, strips, hi);
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// One probe step.  `y`, `out`: (frames, 16 rows, width) uint16; `t`:
+// (frames, rows, 1, width) int32 (int8, bf16, f32, gather, build; an index
+// outside [0, 768) matches no one-hot row); `pat`: (m, 768) int8, 16-byte
+// aligned (int8, bf16, f32, gather: m = 144; dotconst: m = 144 with
+// stride 18 and 8 slices, or m in 16, 64,
+// 128, 144, 160, 256 with stride 16 and m / 16 slices); `oh_t`: (width, 768)
+// int8, 4-byte aligned, the constant matrix transposed (dotconst).  Modes:
+// 0 none, 1 int8, 2 bf16, 3 f32, 4 gather, 5 build, 6 dotconst.  A thread
+// block covers 128 columns of `strips` block rows.  All pointers are device
+// pointers.  Launches on `stream` and returns cudaGetLastError().
+extern "C" int vfg_probe_dot(int mode, int m, int stride, int slices, int hi,
+                             const void* y, void* out, const void* t,
+                             const void* pat, const void* oh_t, int frames,
+                             int rows, int width, int strips, void* stream) {
+  if (y == nullptr || out == nullptr || frames < 1 || frames > 65535 ||
+      rows < 1 || width < 1 || strips < 1 || hi < 0 || hi > 65535)
+    return int(cudaErrorInvalidValue);
+  const bool needs_t = mode >= kInt8 && mode <= kBuild;
+  const bool needs_pat = mode != kNone && mode != kBuild;
+  if ((needs_t && t == nullptr) || (needs_pat && pat == nullptr) ||
+      (needs_pat && reinterpret_cast<uintptr_t>(pat) % 16) ||
+      (mode == kDotconst &&
+       (oh_t == nullptr || reinterpret_cast<uintptr_t>(oh_t) % 4)))
+    return int(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool k6 = m == 144 && stride == 18 && slices == 8;
+#define VFG_DOT(MODE, M, STRIDE, SLICES)                                    \
+  launch<MODE, M, STRIDE, SLICES>(y, out, t, pat, oh_t, frames, rows, width, \
+                                  strips, hi, st)
+  if (mode != kDotconst) {
+    if (!k6) return int(cudaErrorInvalidValue);
+    switch (mode) {
+      case kNone: return VFG_DOT(kNone, 144, 18, 8);
+      case kInt8: return VFG_DOT(kInt8, 144, 18, 8);
+      case kBf16: return VFG_DOT(kBf16, 144, 18, 8);
+      case kF32: return VFG_DOT(kF32, 144, 18, 8);
+      case kGather: return VFG_DOT(kGather, 144, 18, 8);
+      case kBuild: return VFG_DOT(kBuild, 144, 18, 8);
+      default: return int(cudaErrorInvalidValue);
+    }
+  }
+  if (k6) return VFG_DOT(kDotconst, 144, 18, 8);
+  if (stride != 16 || slices * 16 != m) return int(cudaErrorInvalidValue);
+  switch (m) {
+    case 16: return VFG_DOT(kDotconst, 16, 16, 1);
+    case 64: return VFG_DOT(kDotconst, 64, 16, 4);
+    case 128: return VFG_DOT(kDotconst, 128, 16, 8);
+    case 144: return VFG_DOT(kDotconst, 144, 16, 9);
+    case 160: return VFG_DOT(kDotconst, 160, 16, 10);
+    case 256: return VFG_DOT(kDotconst, 256, 16, 16);
+    default: return int(cudaErrorInvalidValue);
+  }
+#undef VFG_DOT
+  return int(cudaErrorInvalidValue);
+}

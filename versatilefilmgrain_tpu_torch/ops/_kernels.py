@@ -141,3 +141,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             i, i, i, i, i,          # c, csubx, csuby, bs, zero_scale
             i,                      # blocks_per_sm
             vp]                     # stream
+    elif name == "probe_dot":
+        lib.vfg_probe_dot.restype = i
+        lib.vfg_probe_dot.argtypes = [
+            i, i, i, i, i,          # mode, m, stride, slices, hi
+            vp, vp, vp, vp, vp,     # y, out, t, pat, oh_t
+            i, i, i, i,             # frames, rows, width, strips
+            vp]                     # stream

@@ -179,8 +179,9 @@ class GrainPipeline:
         its chroma-bearing default fails validation); library users can pass
         a luma-only config here to process those formats.
 
-        ``device``: where frames are grained; defaults to ``cuda`` when a
-        card is present and ``cpu`` otherwise.  ``engine``: ``natural`` is
+        ``device``: where frames are grained; ``None`` means ``cuda``, and a
+        CUDA device without a card raises (pass ``device="cpu"`` for the
+        plain engines on the CPU).  ``engine``: ``natural`` is
         the CUDA kernel (ops/grain_natural.py) and needs a CUDA device;
         ``pallas`` is the tiled engine (ops/grain_pallas.py): its CUDA
         kernel on a CUDA device, its plain strip function on the CPU;
@@ -196,9 +197,12 @@ class GrainPipeline:
                               "least 128")
         if grain_offset < 0:
             raise ConfigError("grain offset must be non-negative")
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: GrainPipeline runs on the "
+                               "card unless asked otherwise; pass "
+                               "device=\"cpu\" (CLI: --device cpu) for the "
+                               "plain engines on the CPU")
         if engine == "auto":
             engine = "natural" if self.device.type == "cuda" else "ref"
         if engine not in ("natural", "pallas", "fast", "ref"):
