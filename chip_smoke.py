@@ -8,7 +8,8 @@ Phases, one result line each:
   1. device   -- the card's name and power limit;
   2. build    -- nvcc builds csrc/grain_natural.cu, csrc/grain_tiled.cu,
                  csrc/expand_words.cu, csrc/probe_budget.cu,
-                 csrc/probe_pipe.cu and csrc/probe_dot.cu, all at once;
+                 csrc/probe_pipe.cu, csrc/probe_dot.cu and
+                 csrc/probe_relayout.cu, all at once;
                  ptxas' register, shared memory and spill report;
   3. kernel   -- the kernel against its plain torch version on the card at
                  3840x2160 10-bit 4:2:0, default config, one batch of 8
@@ -64,8 +65,17 @@ Phases, one result line each:
                  torch.matmul, pat[:, t]);
  18. dot2     -- the same for K7's modes (none, int8, build, dotconst);
  19. dotscale -- the same for K8's dense int8 product at M = 16, 64, 128,
-                 144, 160, 256.
-Then one JSON line describing the eight kernels, and as the last line
+                 144, 160, 256;
+ 20. relayout -- every instance of csrc/probe_relayout.cu (K9's passthrough
+                 and relayout at 1, 5 and 15 block rows per thread block,
+                 K10's two forms on the 5-D view) == its plain version ==
+                 y ^ 1 at 2 frames of 240x160, then both relayout probes'
+                 run at 3840x2160, 8 frames (launches counted, every case
+                 exact) with the plain version and the torch round trip
+                 _untile(_tile(y) ^ 1) timed beside them; shared memory and
+                 thread blocks per SM of each instance, and the SASS counts
+                 of the rchunk-1 relayout instance.
+Then one JSON line describing the ten kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  It needs a CUDA device and the rest of the repository.
 """
@@ -150,9 +160,12 @@ def int_mm_ms(a, pat):
     return cuda_ms(lambda: torch._int_mm(a, b), 5, warmup=1)
 
 
-def sass_counts(kernels, lib, function):
-    """Instruction counts of the SASS of the kernel instance whose mangled
-    name holds ``function``, in the built library ``lib`` (cuobjdump)."""
+def sass_counts(kernels, lib, function,
+                keys=("IMMA", "ISETP", "SEL", "SHF", "IADD3", "LDG", "LDS",
+                      "STS", "STG")):
+    """Counts of the SASS instructions ``keys`` of the kernel instance whose
+    mangled name holds ``function``, in the built library ``lib``
+    (cuobjdump)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return "cuobjdump not found"
@@ -164,8 +177,6 @@ def sass_counts(kernels, lib, function):
     check(body is not None, f"no SASS for {function} in {so}")
     ops = re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
                      body)
-    keys = ("IMMA", "ISETP", "SEL", "SHF", "IADD3", "LDG", "LDS", "STS",
-            "STG")
     return f"{len(ops)} instructions; " + ", ".join(
         f"{k} {ops.count(k)}" for k in keys)
 
@@ -309,7 +320,7 @@ def main() -> int:
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
     sources = ("grain_natural", "grain_tiled", "expand_words",
-               "probe_budget", "probe_pipe", "probe_dot")
+               "probe_budget", "probe_pipe", "probe_dot", "probe_relayout")
     _kernels.build(sources)
     for name in sources:
         _kernels.load(name)
@@ -945,10 +956,70 @@ def main() -> int:
                       for m in pats) + f"; card {card}")
     del y, oh, pats
 
-    def dot_row(name, replaces, mode, res, launches, err, plain, library):
+    # 20. the relayout probes (K9, K10)
+    from versatilefilmgrain_tpu_torch.tools import (_relayout, probe_relayout,
+                                                    probe_relayout5d)
+    rcounter = _relayout.relayout_probe_cuda
+    r5counter = _relayout.relayout5d_probe_cuda
+    ys = _relayout.relayout_inputs(25, 2, 240, 160, device=dev)
+    ys5 = _relayout.view5d(ys)
+    xs = _relayout.passthrough_plain(ys)
+    small = {case: (_relayout.make_step(mode, rchunk),
+                    _relayout.plain(mode, ys, rchunk))
+             for case, (mode, rchunk) in probe_relayout.CASES.items()}
+    small5 = {form: (_relayout.make_step(form), _relayout.plain(form, ys5))
+              for form in _relayout.MODES_5D}
+    for case, (_, want) in {**small, **small5}.items():
+        check(torch.equal(want.view(xs.shape), xs), f"relayout 240x160 "
+              f"{case}: the plain version differs from y ^ 1")
+    exact_small("relayout 240x160", small, ys)
+    exact_small("relayout5d 240x160", small5, ys5)
+    phase("relayout", f"2 frames of 240x160: "
+          f"{', '.join([*small, *small5])} == plain == y ^ 1 (max |err| 0)")
+    y = _relayout.relayout_inputs(0, device=dev)
+    rcounter.launches = 0
+    k9 = probe_relayout.run(y)
+    k9_launches = rcounter.launches
+    r5counter.launches = 0
+    k10 = probe_relayout5d.run(y)
+    k10_launches = r5counter.launches
+    check(k9_launches > 0, "the K9 run never launched the relayout kernel")
+    check(k10_launches > 0, "the K10 run never launched the relayout kernel")
+    for tag, res in (("K9", k9), ("K10", k10)):
+        check(all(r["exact"] for r in res.values()), f"the {tag} run at "
+              f"{W}x{H} found a case differing from its plain version")
+    y5 = _relayout.view5d(y)
+    k9_err = max_err(_relayout.make_step("relayout")(y)[0],
+                     _relayout.relayout_plain(y))
+    k10_err = max_err(_relayout.make_step("5d_transpose")(y5)[0],
+                      _relayout.relayout5d_plain(y5))
+    plain9 = cuda_ms(lambda: _relayout.relayout_plain(y), 10)
+    plain10 = cuda_ms(lambda: _relayout.relayout5d_plain(y5), 10)
+    lib9, lib10 = k9["library"], k10["library"]
+    phase("relayout", f"K9 at {W}x{H}, {F} frames: {k9_launches} launches, "
+          f"K10 {k10_launches} (K9's passthrough and rchunk-1 instances on "
+          f"the 5-D view), every case exact; plain relayout {plain9:.4f} "
+          f"ms, 5d_transpose {plain10:.4f} ms; library "
+          f"_untile(_tile(y) ^ 1) {lib9['round_trip']:.4f} / "
+          f"{lib10['round_trip']:.4f} ms, _tile alone {lib9['tile']:.4f} / "
+          f"{lib10['tile']:.4f} ms; card {card}")
+    phase("relayout", f"at width {W}, dynamic shared memory bytes per thread "
+          f"block / thread blocks per SM: " + ", ".join(
+              "{} r{} {} / {}".format(mode, rchunk, *_relayout.occupancy(
+                  mode, rchunk, W))
+              for mode, rchunk in (("passthrough", 1), ("relayout", 1),
+                                   ("relayout", 5), ("relayout", 15))))
+    phase("relayout", "relayout instance at rchunk 1, the transpose through "
+          "shared memory: " + sass_counts(
+              _kernels, "probe_relayout", "relayout_kernelILi1E",
+              keys=("LDG", "STS", "LDS", "STG", "BAR", "LOP3")))
+    del y, y5, ys, ys5, xs
+
+    def probe_row(name, source, replaces, mode, res, launches, err, plain,
+                  library):
         r = res[mode]
         return {"name": name, "route": "cuda",
-                "source": "versatilefilmgrain_tpu_torch/csrc/probe_dot.cu",
+                "source": f"versatilefilmgrain_tpu_torch/csrc/{source}",
                 "replaces": replaces, "mode": mode, "launches": launches,
                 "max_abs_err": err, "ms": r["ms"], "plain_ms": plain,
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -973,7 +1044,8 @@ def main() -> int:
         "launches": mesh_k2_launches, "max_abs_err": err_k2,
         "ms": k2_ms, "plain_ms": k2_plain_ms,
         "bound_ms": byte_bound_ms(wbytes), "bound_by": "bytes",
-        "library_ms": None}, {
+        # the plain version is _lane_words_xla's one broadcast add a plane
+        "library_ms": k2_plain_ms}, {
         "name": "probe_budget", "route": "cuda",
         "source": "versatilefilmgrain_tpu_torch/csrc/probe_budget.cu",
         "replaces": "tools/probe_budget.py:134",
@@ -986,12 +1058,21 @@ def main() -> int:
         "launches": k4_launches, "max_abs_err": err_k4,
         "ms": min(t4[1], t4[2]), "plain_ms": k4_plain_ms,
         "bound_ms": k45_bound, "bound_by": "bytes", "library_ms": None},
-        dot_row("probe_dot", "tools/probe_dot.py:38", "int8", k6,
-                k6_launches, k6_err, plain6["onehot"], lib6["int8"]),
-        dot_row("probe_dot2", "tools/probe_dot2.py:38", "dotconst", k7,
-                k7_launches, k7_err, plain7["dotconst"], lib7),
-        dot_row("probe_dotscale", "tools/probe_dotscale.py:22", "M=256",
-                k8, k8_launches, k8_err, plain8[256], lib8[256])]}),
+        probe_row("probe_dot", "probe_dot.cu", "tools/probe_dot.py:38",
+                  "int8", k6, k6_launches, k6_err, plain6["onehot"],
+                  lib6["int8"]),
+        probe_row("probe_dot2", "probe_dot.cu", "tools/probe_dot2.py:38",
+                  "dotconst", k7, k7_launches, k7_err, plain7["dotconst"],
+                  lib7),
+        probe_row("probe_dotscale", "probe_dot.cu",
+                  "tools/probe_dotscale.py:22", "M=256", k8, k8_launches,
+                  k8_err, plain8[256], lib8[256]),
+        probe_row("probe_relayout", "probe_relayout.cu",
+                  "tools/probe_relayout.py:41", "relayout", k9, k9_launches,
+                  k9_err, plain9, lib9["round_trip"]),
+        probe_row("probe_relayout5d", "probe_relayout.cu",
+                  "tools/probe_relayout5d.py:40", "5d_transpose", k10,
+                  k10_launches, k10_err, plain10, lib10["round_trip"])]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

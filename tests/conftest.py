@@ -24,3 +24,5 @@ jax.config.update("jax_platforms", "cpu")
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "cuda: needs an NVIDIA GPU; skips without one")
+    config.addinivalue_line(
+        "markers", "slow: long-running; tier-1 deselects it (-m 'not slow')")

@@ -1,7 +1,8 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
 K1 (lattice and lane-word input, shard boot), K2, K3, the two probes of K1
-(K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu) and the one-hot dot
-probes (K6-K8, csrc/probe_dot.cu).
+(K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu), the one-hot dot probes
+(K6-K8, csrc/probe_dot.cu) and the relayout probes (K9, K10,
+csrc/probe_relayout.cu).
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one (the kernel has no CPU mode; the CPU tests hold the plain
@@ -307,3 +308,39 @@ def test_dot_probe_out_of_range_indices(cuda_device):
         got = _dot.make_step(mode, t, pat)(y)[0]
         torch.cuda.synchronize()
         assert torch.equal(got, _dot.plain(mode, y, t, pat)), mode
+
+
+def test_relayout_probe_matches_plain(cuda_device):
+    """Every instance of csrc/probe_relayout.cu (K9's passthrough and
+    relayout at 1, 5 and 15 block rows per thread block, K10's two forms on
+    the 5-D view) == its plain version == y ^ 1, at 2 frames of 240x160 (a
+    width that is not a multiple of 128)."""
+    from versatilefilmgrain_tpu_torch.tools import _relayout, probe_relayout
+    y = _relayout.relayout_inputs(29, 2, 240, 160, device=cuda_device)
+    want = _relayout.passthrough_plain(y)
+    for case, (mode, rchunk) in probe_relayout.CASES.items():
+        got = _relayout.make_step(mode, rchunk)(y)[0]
+        torch.cuda.synchronize()
+        assert torch.equal(got, _relayout.plain(mode, y, rchunk)), case
+        assert torch.equal(got, want), case
+    y5 = _relayout.view5d(y)
+    for form in _relayout.MODES_5D:
+        got = _relayout.make_step(form)(y5)[0]
+        torch.cuda.synchronize()
+        assert got.shape == y5.shape, form
+        assert torch.equal(got, _relayout.plain(form, y5)), form
+        assert torch.equal(got.view(y.shape), want), form
+
+
+def test_relayout_launch_counters(cuda_device):
+    """Each wrapper counts its own launches, once per launch."""
+    from versatilefilmgrain_tpu_torch.tools import _relayout
+    y = _relayout.relayout_inputs(31, 1, 240, 256, device=cuda_device)
+    k9 = _relayout.relayout_probe_cuda
+    k10 = _relayout.relayout5d_probe_cuda
+    before = (k9.launches, k10.launches)
+    _relayout.make_step("relayout", 15)(y)
+    _relayout.make_step("passthrough")(y)
+    _relayout.make_step("5d_transpose")(_relayout.view5d(y))
+    torch.cuda.synchronize()
+    assert (k9.launches, k10.launches) == (before[0] + 2, before[1] + 1)

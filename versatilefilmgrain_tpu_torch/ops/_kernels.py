@@ -148,3 +148,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp, vp, vp, vp, vp,     # y, out, t, pat, oh_t
             i, i, i, i,             # frames, rows, width, strips
             vp]                     # stream
+    elif name == "probe_relayout":
+        lib.vfg_probe_relayout.restype = i
+        lib.vfg_probe_relayout.argtypes = [
+            i, i, vp, vp,           # mode, rchunk, y, out
+            i, i, i,                # frames, rows, width
+            vp]                     # stream
+        lib.vfg_probe_relayout_info.restype = i
+        lib.vfg_probe_relayout_info.argtypes = [
+            i, i, i,                # mode, rchunk, width
+            ctypes.POINTER(i), ctypes.POINTER(i)]  # smem, blocks per SM

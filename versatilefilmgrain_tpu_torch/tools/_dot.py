@@ -15,7 +15,6 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import sys
 
 import numpy as np
 import torch
@@ -36,8 +35,7 @@ ONEHOT_MODES = ("int8", "bf16", "f32", "gather")
 # The inputs besides y that each mode reads ("oh": the constant matrix).
 READS = {"none": (), "build": ("t",), "dotconst": ("pat", "oh"),
          **{m: ("t", "pat") for m in ONEHOT_MODES}}
-# H100 SXM data sheet (dense): bytes/s and operations/s per input type.
-HBM_BYTES_S = 3.35e12
+# H100 SXM data sheet (dense): operations/s per input type.
 PEAK_OPS_S = {"int8": 1979e12, "dotconst": 1979e12, "bf16": 989e12,
               "f32": 495e12}
 
@@ -283,45 +281,10 @@ def bound(mode, y, t=None, pat=None, oh=None) -> tuple[float, str]:
     ins = {"t": t, "pat": pat, "oh": oh}
     nbytes = sum(x.numel() * x.element_size()
                  for x in (y, y, *(ins[n] for n in READS[mode])))
-    byte_ms = 1e3 * nbytes / HBM_BYTES_S
+    byte_ms = 1e3 * nbytes / hz.HBM_BYTES_S
     if mode not in PEAK_OPS_S:
         return byte_ms, "bytes"
     Fy, Hy, Wy = y.shape
     ops = 2 * pat.shape[0] * K * Wy * Fy * (Hy // 16)
     op_ms = 1e3 * ops / PEAK_OPS_S[mode]
     return (op_ms, "operations") if op_ms > byte_ms else (byte_ms, "bytes")
-
-
-def run_modes(cases: dict, y, n: int = 20) -> dict:
-    """Time and check each named case ``(step, want, (bound_ms,
-    bound_by))`` on the card: device ms per step chained ``n`` times (each
-    step's output is the next step's ``y``, as the JAX chain does), then
-    whether one step on ``y`` equals ``want``, its plain version's output.
-    Prints one line per case; returns {name: {"ms", "bound_ms", "bound_by",
-    "exact"}}."""
-    res = {}
-    for name, (step, want, (bms, by)) in cases.items():
-        ms = hz.chain_ms(step, (y,), (), n=n)
-        ok = bool(torch.equal(step(y)[0], want))
-        res[name] = dict(ms=ms, bound_ms=bms, bound_by=by, exact=ok)
-        print(f"  {name:14s} {ms:9.4f} ms  bound {bms:.4f} ms ({by}), "
-              f"{ms / bms:6.2f}x  exact vs plain: {ok}", flush=True)
-    return res
-
-
-def header(what: str, y) -> None:
-    Fy, Hy, Wy = y.shape
-    print(f"card: {hz.card()}; {what}: {Wy}x{Hy} uint16, {Fy} frames per "
-          f"step, {Fy * (Hy // 16)} block rows; ms per step (CUDA events, "
-          f"median of 3 chains of 20); bounds from the H100 SXM data sheet",
-          flush=True)
-
-
-def no_card(name: str) -> bool:
-    """True (after saying so) when there is no CUDA device: the probes time
-    the kernel on the card only."""
-    if torch.cuda.is_available():
-        return False
-    print(f"{name}: no CUDA device; the probe times the kernel on the card "
-          f"only", file=sys.stderr)
-    return True

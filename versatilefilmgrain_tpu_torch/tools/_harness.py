@@ -1,6 +1,6 @@
-"""Shared helpers of the grain-kernel probes: the headline shape, the
-register files of the three probe configs, frame bases, seeded planes and
-chained timing on the card.
+"""Shared helpers of the probes: the headline shape, the register files of
+the three probe configs, frame bases, seeded planes, chained timing on the
+card and the timed, checked run of a probe's cases.
 
 The counterpart of what the JAX probes import from ``bench.py`` and
 ``__graft_entry__.py``, on the port's own modules.
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import os
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -23,6 +24,7 @@ from ..utils import parsers, yuv
 
 H, W = 2160, 3840      # the headline shape: 4K 10-bit 4:2:0
 FRAMES_BATCH = 8       # frames per batch step
+HBM_BYTES_S = 3.35e12  # H100 SXM data sheet: device memory bytes/s
 
 CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "tests", "golden", "cfg")
@@ -119,3 +121,38 @@ def card() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout
     return out.strip().splitlines()[0]
+
+
+def run_modes(cases: dict, y, n: int = 20) -> dict:
+    """Time and check each named case ``(step, want, (bound_ms,
+    bound_by))`` on the card: device ms per step chained ``n`` times (each
+    step's output is the next step's ``y``, as the JAX chain does), then
+    whether one step on ``y`` equals ``want``, its plain version's output.
+    Prints one line per case; returns {name: {"ms", "bound_ms", "bound_by",
+    "exact"}}."""
+    res = {}
+    for name, (step, want, (bms, by)) in cases.items():
+        ms = chain_ms(step, (y,), (), n=n)
+        ok = bool(torch.equal(step(y)[0], want))
+        res[name] = dict(ms=ms, bound_ms=bms, bound_by=by, exact=ok)
+        print(f"  {name:14s} {ms:9.4f} ms  bound {bms:.4f} ms ({by}), "
+              f"{ms / bms:6.2f}x  exact vs plain: {ok}", flush=True)
+    return res
+
+
+def header(what: str, y) -> None:
+    Fy, Hy, Wy = y.shape
+    print(f"card: {card()}; {what}: {Wy}x{Hy} uint16, {Fy} frames per "
+          f"step, {Fy * (Hy // 16)} block rows; ms per step (CUDA events, "
+          f"median of 3 chains of 20); bounds from the H100 SXM data sheet",
+          flush=True)
+
+
+def no_card(name: str) -> bool:
+    """True (after saying so) when there is no CUDA device: the probes time
+    the kernel on the card only."""
+    if torch.cuda.is_available():
+        return False
+    print(f"{name}: no CUDA device; the probe times the kernel on the card "
+          f"only", file=sys.stderr)
+    return True

@@ -23,6 +23,7 @@ import sys
 import torch
 
 from . import _dot
+from . import _harness as hz
 
 MODES = ("none", "int8", "bf16", "f32", "gather")
 STRIPS = 9
@@ -44,7 +45,7 @@ def run(y, t, pat) -> dict:
             _dot.bound(mode, y, t, pat))
     print("probe_dot (K6): pat(144x768) @ onehot(768xW) per block row, 8 "
           "row slices summed, clip 4092", flush=True)
-    res = _dot.run_modes(cases, y)
+    res = hz.run_modes(cases, y)
     int8 = cases["int8"][0](y)[0]
     res["equal"] = {f"{m} == int8": bool(torch.equal(cases[m][0](y)[0], int8))
                     for m in ("bf16", "gather")}
@@ -54,10 +55,10 @@ def run(y, t, pat) -> dict:
 
 
 def main(argv=None) -> int:
-    if _dot.no_card("probe_dot"):
+    if hz.no_card("probe_dot"):
         return 2
     y, t, pat = _dot.dot_inputs(0, device="cuda")
-    _dot.header("probe_dot", y)
+    hz.header("probe_dot", y)
     run(y, t, pat)
     return 0
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import sys
 
 from . import _dot
+from . import _harness as hz
 
 MODES = ("none", "int8", "build", "dotconst")
 
@@ -36,14 +37,14 @@ def run(y, t, pat, constoh) -> dict:
                        _dot.bound(mode, y, *args))
     print("probe_dot2 (K7): one-hot build without a dot, and a dense int8 "
           "dot against a constant matrix", flush=True)
-    return _dot.run_modes(cases, y)
+    return hz.run_modes(cases, y)
 
 
 def main(argv=None) -> int:
-    if _dot.no_card("probe_dot2"):
+    if hz.no_card("probe_dot2"):
         return 2
     y, t, pat, constoh = _dot.dot2_inputs(0, device="cuda")
-    _dot.header("probe_dot2", y)
+    hz.header("probe_dot2", y)
     run(y, t, pat, constoh)
     return 0
 

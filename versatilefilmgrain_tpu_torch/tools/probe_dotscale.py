@@ -15,6 +15,7 @@ from __future__ import annotations
 import sys
 
 from . import _dot
+from . import _harness as hz
 
 
 def run(y, oh, pats: dict) -> dict:
@@ -29,14 +30,14 @@ def run(y, oh, pats: dict) -> dict:
                            _dot.bound("dotconst", y, None, pat, oh))
     print("probe_dotscale (K8): pat(Mx768) @ oh(768xW) per block row, M/16 "
           "row slices summed, clip 4095", flush=True)
-    return _dot.run_modes(cases, y)
+    return hz.run_modes(cases, y)
 
 
 def main(argv=None) -> int:
-    if _dot.no_card("probe_dotscale"):
+    if hz.no_card("probe_dotscale"):
         return 2
     y, oh, pats = _dot.dotscale_inputs(0, device="cuda")
-    _dot.header("probe_dotscale", y)
+    hz.header("probe_dotscale", y)
     run(y, oh, pats)
     return 0
 
