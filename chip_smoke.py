@@ -14,7 +14,9 @@ Phases, one result line each:
   3. kernel   -- the kernel against its plain torch version on the card at
                  3840x2160 10-bit 4:2:0, default config, one batch of 8
                  frames; exact equality on all planes; both timed with CUDA
-                 events;
+                 events; registers, static shared memory and thread blocks
+                 per SM of each K1 instance, and the SASS counts of the
+                 main path's;
   4. geometry -- the same comparison at small sizes for other configs,
                  depths, chroma formats, a pad-leak and an unaligned width;
   5. golden   -- the 48 golden CLI cases through the port's CLI on the card,
@@ -74,7 +76,15 @@ Phases, one result line each:
                  exact) with the plain version and the torch round trip
                  _untile(_tile(y) ^ 1) timed beside them; shared memory and
                  thread blocks per SM of each instance, and the SASS counts
-                 of the rchunk-1 relayout instance.
+                 of the rchunk-1 relayout instance;
+ 21. fuzz     -- the fifty CLI fuzz cases of tests/test_torch_fuzz.py
+                 (tools/fuzz_cfg.py's generators through
+                 tests/torch_port_cases.fuzz_case: random configs, mid-stream
+                 switches and CLI options at 192x160 and, for twelve, at
+                 boundary widths 130-160) through the port's CLI with
+                 --device cuda under --engine auto (K1) and --engine pallas
+                 (K3), each against --device cpu: equal exit codes and
+                 output bytes; K1 and K3 launches counted.
 Then one JSON line describing the ten kernels, and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  It needs a CUDA device and the rest of the repository.
@@ -373,6 +383,21 @@ def main() -> int:
           f"{nbytes / (min(ms_k, ms_k2) * 1e-3) / 1e12:.3f} TB/s; "
           f"card {card}")
     kernel_ms, plain_ms = min(ms_k, ms_k2), min(ms_p, ms_p2)
+    phase("kernel", "K1 instances, registers / static shared memory bytes / "
+          "thread blocks per SM at 256 threads (occupancy calculator): "
+          + ", ".join(
+              "uint{} {} {} {registers} / {static_smem} / {blocks_per_sm}"
+              .format(8 * eb, "lanes" if lane else "lattice",
+                      "vector" if vec else "sample-wise",
+                      **grain_natural.grain_plane_info(eb, lane, vec))
+              for eb in (2, 1) for lane in (False, True)
+              for vec in (True, False)))
+    phase("kernel", "K1's uint16 lattice vector instance (this phase's): "
+          + sass_counts(_kernels, "grain_natural",
+                        "grain_plane_kernelItLb0ELi0ELb1E",
+                        keys=("LDG", "LDS", "STG", "SHFL", "IMAD", "IADD3",
+                              "LOP3", "SHF", "ISETP", "SEL", "PRMT",
+                              "BRA")))
     tbytes = tensor_bytes(*(tables[k] for k in ("pattern", "slut", "plut",
                                                 "scalars")))
     k1_bound = byte_bound_ms(nbytes + lat32.numel() * 4 + tbytes)
@@ -1014,6 +1039,48 @@ def main() -> int:
               _kernels, "probe_relayout", "relayout_kernelILi1E",
               keys=("LDG", "STS", "LDS", "STG", "BAR", "LOP3")))
     del y, y5, ys, ys5, xs
+
+    # 21. the CLI fuzz on the card: K1 and K3 against the plain engines
+    from torch_port_cases import (FUZZ_SLOW, FUZZ_TIER1, fuzz_case,
+                                  load_fuzz_cfg)
+    fuzz = load_fuzz_cfg()
+    work = os.path.join(SCRATCH, "fuzz")
+    os.makedirs(work)
+    runs = (("cpu", "auto"), ("cuda", "auto"), ("cuda", "pallas"))
+    counter.launches = tcounter.launches = 0
+    t0 = time.perf_counter()
+    rejected = 0
+    cases = FUZZ_TIER1 + FUZZ_SLOW
+    for seed, boundary in cases:
+        kind_, args, inp = fuzz_case(fuzz, seed, boundary, work)
+        got = {}
+        for device, engine in runs:
+            out = os.path.join(work, f"out_{device}_{engine}.yuv")
+            if os.path.exists(out):
+                os.remove(out)
+            rc = cli.main(["vfgs-torch", "--device", device, "--engine",
+                           engine] + args + [inp, out])
+            data = open(out, "rb").read() if os.path.exists(out) else None
+            got[device, engine] = (rc, data)
+        case = f"seed {seed} [{kind_}] {' '.join(args)}"
+        rc_cpu, out_cpu = got["cpu", "auto"]
+        rejected += rc_cpu != 0
+        for (device, engine), (rc, data) in got.items():
+            check(rc == rc_cpu, f"fuzz {case}: {device} {engine} exit {rc}, "
+                  f"CPU exit {rc_cpu}")
+            if rc_cpu == 0:
+                check(out_cpu and data == out_cpu, f"fuzz {case}: {device} "
+                      f"{engine} output differs from the CPU's")
+    fuzz_launches = (counter.launches, tcounter.launches)
+    check(fuzz_launches[0] > 0, "the fuzz cases never launched K1")
+    check(fuzz_launches[1] > 0, "the fuzz cases never launched K3")
+    phase("fuzz", f"{len(cases)} CLI cases ({sum(b for _, b in cases)} at "
+          f"boundary widths 130-160; {rejected} rejected alike on every "
+          f"run): --device cuda --engine auto (K1, {fuzz_launches[0]} "
+          f"launches) and --engine pallas (K3, {fuzz_launches[1]} launches) "
+          f"== --device cpu, exit codes and output bytes; "
+          f"{time.perf_counter() - t0:.1f} s")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
 
     def probe_row(name, source, replaces, mode, res, launches, err, plain,
                   library):

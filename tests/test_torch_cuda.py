@@ -65,6 +65,122 @@ def test_launch_counter(cuda_device):
     assert grain_natural.grain_plane_cuda.launches == before + 3
 
 
+# K1's threads own 8 columns each, a warp 256: with 17, 33 or 49 block
+# columns a row ends in a partly filled warp, one lane of it live at 33 (luma
+# widths 272, 528, 784; subsampled chroma 136, 264, 392, whose uint8 rows are
+# not 16-byte multiples apart).
+@pytest.mark.parametrize("cols", [17, 33, 49])
+@pytest.mark.parametrize("depth", [8, 10])
+@pytest.mark.parametrize("csub", [(2, 2), (2, 1), (1, 1)])
+def test_kernel_widths_match_plain(cols, depth, csub, cuda_device):
+    """K1 on lattice words and on lane words == the plain version, every
+    plane, at widths that end a row inside a warp's run of columns."""
+    regs = regs_for(TORCH_PKG, "sei_ff", depth, csub)
+    tables = grain_natural.natural_tables(regs, cuda_device)
+    rows, frames = 3, (0, 2)
+    bases, _ = frame_bases(TORCH_PKG, regs.seed_state, rows, cols, frames)
+    planes = [torch.from_numpy(p).to(cuda_device) for p in
+              random_planes(cols + depth, depth, rows, cols, csub,
+                            frames=len(frames))]
+    geo = dict(bs=depth - 8, csubx=csub[0], csuby=csub[1])
+    want = grain_natural.add_grain_batch_plain(*planes, bases, tables, **geo)
+    for mode in (None, "xla"):
+        got = grain_natural.add_grain_batch_natural(
+            *planes, bases, None, tables, height=rows * 16, width=cols * 16,
+            word_expand=mode, **geo)
+        torch.cuda.synchronize()
+        for c in range(3):
+            assert torch.equal(got[c], want[c]), \
+                f"C={cols} d{depth} csub{csub} {mode} plane {c}"
+
+
+@pytest.mark.parametrize("depth", [8, 10])
+@pytest.mark.parametrize("lane", [False, True])
+def test_kernel_unaligned_planes(depth, lane, cuda_device):
+    """Planes whose pointer is not aligned to a thread's 8 samples take the
+    sample-at-a-time instance; it gives the vector instance's output.  Both
+    instances report their registers, shared memory and blocks per SM."""
+    regs = regs_for(TORCH_PKG, "afgs1", depth, (2, 2))
+    tables = grain_natural.natural_tables(regs, cuda_device)
+    rows, cols = 2, 33
+    bases, _ = frame_bases(TORCH_PKG, regs.seed_state, rows, cols, (0, 1))
+    y = torch.from_numpy(random_planes(71, depth, rows, cols, (2, 2),
+                                       frames=2)[1]).to(cuda_device)
+    lat = grain_natural._lattice(bases, torch.empty(
+        2, rows * 16, cols * 16, device=cuda_device))
+    words = (grain_natural._lane_words3(lat, 2, 2)[1] if lane
+             else grain_natural._as_int32_words(lat))
+    geo = dict(c=1, bs=depth - 8, csubx=2, csuby=2)
+    want = grain_natural.grain_plane_cuda(y, words, tables, **geo)
+    buf = torch.empty(y.numel() + 1, dtype=y.dtype, device=cuda_device)
+    shifted = buf[1:].view(y.shape)
+    shifted.copy_(y)
+    assert shifted.data_ptr() % (8 * y.element_size()) != 0
+    got = grain_natural.grain_plane_cuda(shifted, words, tables, **geo)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for vec in (True, False):
+        info = grain_natural.grain_plane_info(y.element_size(), lane, vec)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
+        assert info["static_smem"] >= 8 * 64 * 64, info
+
+
+@pytest.mark.parametrize("depth", [8, 10])
+@pytest.mark.parametrize("mode", ["kernel", "xla"])
+def test_kernel_widths_shard_boot(depth, mode, cuda_device):
+    """The shard boot (blend0: the first local row blends from the upper
+    row passed in) at 33 block columns, where a row ends in a warp with one
+    live lane, on lattice and lane words: card == CPU."""
+    cols = 33
+    regs = regs_for(TORCH_PKG, "sei_ff", depth, (2, 2))
+    rng = np.random.default_rng(67)
+    states = torch.from_numpy(rng.integers(0, 1 << 32, (2, 3, cols),
+                                           dtype=np.int64))
+    states_up = torch.from_numpy(rng.integers(0, 1 << 32, (2, 3, cols),
+                                              dtype=np.int64))
+    planes = [torch.from_numpy(p) for p in
+              random_planes(71, depth, 3, cols, (2, 2), frames=2)]
+    geo = dict(bs=depth - 8, csubx=2, csuby=2, word_expand=mode)
+    want = grain_natural.add_grain_shard_natural(
+        *planes, states, states_up, [True] * 3,
+        grain_natural.natural_tables(regs, "cpu"), **geo)
+    boots = grain_natural.grain_plane_cuda.boot_launches
+    got = grain_natural.add_grain_shard_natural(
+        *(p.to(cuda_device) for p in planes), states.to(cuda_device),
+        states_up.to(cuda_device), [True] * 3,
+        grain_natural.natural_tables(regs, cuda_device), **geo)
+    torch.cuda.synchronize()
+    assert grain_natural.grain_plane_cuda.boot_launches == boots + 3
+    for c in range(3):
+        assert torch.equal(got[c].cpu(), want[c]), f"d{depth} {mode} {c}"
+
+
+@pytest.mark.parametrize("width,height,depth", [(145, 128, 8),
+                                                (257, 144, 10)])
+def test_pipeline_pad_leak_matches_plain(width, height, depth, cuda_device):
+    """A pad-leak width (component width % block width == 1) through
+    GrainPipeline on the card == the plain engine on the CPU, frame by
+    frame (the padded buffer carries grain from one frame to the next)."""
+    from versatilefilmgrain_tpu_torch import GrainPipeline
+    from versatilefilmgrain_tpu_torch.utils import yuv
+    card = GrainPipeline(width, height, depth, yuv.YUV_420,
+                         device=cuda_device)
+    ref = GrainPipeline(width, height, depth, yuv.YUV_420, device="cpu",
+                        engine="ref")
+    assert card._has_pad_leak()
+    rng = np.random.default_rng(width)
+    dt = np.uint8 if depth == 8 else np.uint16
+    for n in range(3):
+        frame = [rng.integers(0, 1 << depth, (h, w)).astype(dt)
+                 for h, w in ((height, width),
+                              ((height + 1) // 2, (width + 1) // 2),
+                              ((height + 1) // 2, (width + 1) // 2))]
+        for c, (a, b) in enumerate(zip(card.process_frame(frame, n),
+                                       ref.process_frame(frame, n))):
+            assert np.array_equal(np.asarray(a), np.asarray(b)), \
+                f"{width}x{height} frame {n} plane {c}"
+
+
 def _tiled_kernel_plain_natural(kind, depth, csub, dev):
     """The tiled engine on the card, its plain strip function on the card
     and the natural kernel, on the same planes."""

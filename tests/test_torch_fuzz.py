@@ -13,10 +13,11 @@ compares with is not needed: the JAX package is held to it by its own
 golden tests.
 
 Ten seeded cases run in tier-1, two of them at the boundary widths 130-160;
-forty more are marked ``slow``.
+forty more are marked ``slow``.  The cases and their draw live in
+tests/torch_port_cases.py, which imports no JAX: chip_smoke.py runs the same
+fifty through the port's CLI on the card.
 """
 
-import importlib.util
 import os
 import random
 
@@ -25,59 +26,13 @@ import pytest
 from versatilefilmgrain_tpu import cli as jax_cli
 from versatilefilmgrain_tpu_torch import cli as torch_cli
 
-from torch_port_cases import REPO
-
-DIMS = (192, 160)       # fuzz_cfg.py's default geometry
-# (seed, boundary widths): tier-1 cases, then the slow ones
-TIER1 = [(s, False) for s in range(8)] + [(100, True), (101, True)]
-SLOW = ([(s, False) for s in range(8, 38)]
-        + [(s, True) for s in range(102, 112)])
+from torch_port_cases import (FUZZ_DIMS, FUZZ_SLOW, FUZZ_TIER1, draw_case,
+                              fuzz_case, load_fuzz_cfg)
 
 
 @pytest.fixture(scope="module")
 def fuzz():
-    spec = importlib.util.spec_from_file_location(
-        "_fuzz_cfg", os.path.join(REPO, "tools", "fuzz_cfg.py"))
-    m = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(m)
-    return m
-
-
-def _draw_case(fuzz, rng, work, w, h):
-    """CLI arguments and input path of one case, drawn from ``rng`` as
-    fuzz_cfg.run_case draws them; the configs are written under ``work``."""
-    kind = rng.choice(["ff", "ff", "ar", "afgs1", "afgs1", "tbl", "multi",
-                       "dump"])
-    gens = {"ff": fuzz.gen_sei_ff, "ar": fuzz.gen_sei_ar,
-            "afgs1": fuzz.gen_afgs1, "tbl": fuzz.gen_tbl,
-            "dump": fuzz.gen_dump}
-    args = ["-w", str(w), "-h", str(h), "-b", rng.choice(["8", "10"]),
-            "-n", "3"]
-    if kind == "multi":
-        pocs = sorted(rng.sample(range(0, 3), rng.randint(1, 3)))
-        for m, poc in enumerate(pocs):
-            sub = rng.choice(["ff", "ar", "afgs1", "tbl"])
-            cfg = os.path.join(work, f"case_{m}.cfg")
-            with open(cfg, "w") as f:
-                f.write(gens[sub](rng))
-            args += ["-c", f"{poc}:{cfg}"]
-    else:
-        cfg = os.path.join(work, "case.cfg")
-        with open(cfg, "w") as f:
-            f.write(gens[kind](rng))
-        args += ["-c", cfg]
-    if rng.random() < 0.3:
-        args += ["-g", str(rng.randint(40, 200))]
-    if rng.random() < 0.3:
-        args += ["-r", str(rng.randint(1, 2**30))]
-    if rng.random() < 0.2:
-        args += ["-s", "1"]
-    if rng.random() < 0.2 and args[5] == "10":
-        args += ["--outdepth", "8"]
-    depth = int(args[5])
-    inp = os.path.join(work, f"in_{w}x{h}.yuv.{depth}")
-    fuzz.make_input_yuv(inp, w, h, depth, 0, 4)
-    return kind, args, inp
+    return load_fuzz_cfg()
 
 
 def _run(main, argv, out):
@@ -88,14 +43,7 @@ def _run(main, argv, out):
 
 
 def _check_case(fuzz, seed, boundary, work):
-    rng = random.Random(seed)
-    if boundary:
-        # fuzz_cfg.main --boundary: even widths hugging the reference's
-        # width > 128 limit
-        w, h = 2 * rng.randint(65, 80), 2 * rng.randint(65, 80)
-    else:
-        w, h = DIMS
-    kind, args, inp = _draw_case(fuzz, rng, str(work), w, h)
+    kind, args, inp = fuzz_case(fuzz, seed, boundary, work)
     rc_j, out_j = _run(jax_cli.main, ["vfgs-tpu"] + args + [inp],
                        str(work / "jax.yuv"))
     rc_t, out_t = _run(torch_cli.main,
@@ -109,13 +57,13 @@ def _check_case(fuzz, seed, boundary, work):
                                 f"{len(out_j)} bytes)")
 
 
-@pytest.mark.parametrize("seed,boundary", TIER1)
+@pytest.mark.parametrize("seed,boundary", FUZZ_TIER1)
 def test_cli_matches_jax(seed, boundary, fuzz, tmp_path):
     _check_case(fuzz, seed, boundary, tmp_path)
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("seed,boundary", SLOW)
+@pytest.mark.parametrize("seed,boundary", FUZZ_SLOW)
 def test_cli_matches_jax_more(seed, boundary, fuzz, tmp_path):
     _check_case(fuzz, seed, boundary, tmp_path)
 
@@ -139,9 +87,9 @@ def test_draw_matches_run_case(fuzz, tmp_path, monkeypatch):
     os.makedirs(fuzz.WORK)
     for seed in range(20):
         calls.clear()
-        fuzz.run_case(0, random.Random(seed), "in", dims=DIMS)
-        _, args, _ = _draw_case(fuzz, random.Random(seed), str(tmp_path),
-                                *DIMS)
+        fuzz.run_case(0, random.Random(seed), "in", dims=FUZZ_DIMS)
+        _, args, _ = draw_case(fuzz, random.Random(seed), str(tmp_path),
+                               *FUZZ_DIMS)
         ref_args = calls[0][1:-2]
 
         def strip(a):   # config paths differ; their POC prefixes do not

@@ -214,7 +214,8 @@ def test_kernel_build_follows_headers(tmp_path):
     so = str(tmp_path / "libgrain_natural.so")
     assert _kernels.stale(src, so)            # missing
     open(so, "wb").close()
-    t = os.path.getmtime(src) + 100
+    # after the newest file of the copy, whichever was edited last
+    t = max(os.path.getmtime(p) for p in csrc.iterdir()) + 100
     os.utime(so, (t, t))
     assert not _kernels.stale(src, so)        # newer than source and headers
     header = csrc / "grain_natural_body.cuh"

@@ -7,7 +7,9 @@ code on identical inputs.
 """
 
 import importlib
+import importlib.util
 import os
+import random
 
 import numpy as np
 
@@ -22,6 +24,14 @@ CFG_FILES = sorted(f for f in os.listdir(CFG_DIR)
 # The engine grid of tests/test_fast_engine.py and test_natural_engine.py.
 KINDS = ["sei_ff", "sei_ar", "afgs1"]
 DEPTH_CSUB = [(10, (2, 2)), (8, (2, 2)), (10, (2, 1)), (8, (1, 1))]
+
+# The CLI fuzz cases (tests/test_torch_fuzz.py, chip_smoke.py), each a
+# (seed, boundary widths) pair: ten in tier-1, two of them at the boundary
+# widths 130-160, then forty more, ten of them at boundary widths.
+FUZZ_DIMS = (192, 160)       # tools/fuzz_cfg.py's default geometry
+FUZZ_TIER1 = [(s, False) for s in range(8)] + [(100, True), (101, True)]
+FUZZ_SLOW = ([(s, False) for s in range(8, 38)]
+             + [(s, True) for s in range(102, 112)])
 
 
 def mod(pkg: str, name: str):
@@ -88,6 +98,66 @@ def golden_output(cli_main, entry, engine, tmpdir, device="cpu"):
                     + golden_cli_args(case, inp, out)) == 0
     with open(out, "rb") as f:
         return f.read()
+
+
+def load_fuzz_cfg():
+    """tools/fuzz_cfg.py, loaded by path and unchanged (it imports no
+    JAX)."""
+    spec = importlib.util.spec_from_file_location(
+        "_fuzz_cfg", os.path.join(REPO, "tools", "fuzz_cfg.py"))
+    m = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(m)
+    return m
+
+
+def draw_case(fuzz, rng, work, w, h):
+    """CLI arguments and input path of one case, drawn from ``rng`` as
+    fuzz_cfg.run_case draws them; the configs are written under ``work``."""
+    kind = rng.choice(["ff", "ff", "ar", "afgs1", "afgs1", "tbl", "multi",
+                       "dump"])
+    gens = {"ff": fuzz.gen_sei_ff, "ar": fuzz.gen_sei_ar,
+            "afgs1": fuzz.gen_afgs1, "tbl": fuzz.gen_tbl,
+            "dump": fuzz.gen_dump}
+    args = ["-w", str(w), "-h", str(h), "-b", rng.choice(["8", "10"]),
+            "-n", "3"]
+    if kind == "multi":
+        pocs = sorted(rng.sample(range(0, 3), rng.randint(1, 3)))
+        for m, poc in enumerate(pocs):
+            sub = rng.choice(["ff", "ar", "afgs1", "tbl"])
+            cfg = os.path.join(work, f"case_{m}.cfg")
+            with open(cfg, "w") as f:
+                f.write(gens[sub](rng))
+            args += ["-c", f"{poc}:{cfg}"]
+    else:
+        cfg = os.path.join(work, "case.cfg")
+        with open(cfg, "w") as f:
+            f.write(gens[kind](rng))
+        args += ["-c", cfg]
+    if rng.random() < 0.3:
+        args += ["-g", str(rng.randint(40, 200))]
+    if rng.random() < 0.3:
+        args += ["-r", str(rng.randint(1, 2**30))]
+    if rng.random() < 0.2:
+        args += ["-s", "1"]
+    if rng.random() < 0.2 and args[5] == "10":
+        args += ["--outdepth", "8"]
+    depth = int(args[5])
+    inp = os.path.join(work, f"in_{w}x{h}.yuv.{depth}")
+    fuzz.make_input_yuv(inp, w, h, depth, 0, 4)
+    return kind, args, inp
+
+
+def fuzz_case(fuzz, seed, boundary, work):
+    """Kind, CLI arguments and input path of the fuzz case (seed,
+    boundary): at boundary widths the geometry is drawn first, as
+    fuzz_cfg.main --boundary draws it (even widths hugging the reference's
+    width > 128 limit), else it is fuzz_cfg.py's default."""
+    rng = random.Random(seed)
+    if boundary:
+        w, h = 2 * rng.randint(65, 80), 2 * rng.randint(65, 80)
+    else:
+        w, h = FUZZ_DIMS
+    return draw_case(fuzz, rng, str(work), w, h)
 
 
 def regs_for(pkg, kind, depth, csub):

@@ -19,21 +19,26 @@
 // local row blends from an upper row passed in (`up0`, one row of words per
 // frame) when `blend0` is set, as the TPU kernel's do_blend = r > 0 | blend0.
 //
-// What bounds it on this card: bytes.  A 3840x2160 10-bit 4:2:0 frame is
-// 24,883,200 bytes, read once and written once; at the H100 SXM data-sheet
-// 3.35 TB/s that is a computed ceiling of about 67k frames/s (arithmetic,
-// not a measurement).  The design moves each pixel once in and once out and
-// keeps every table on chip: the plane class's pattern bank (8 x 64 x 64
-// int8, 32 KB) and the scale/pattern LUT pair (512 B) sit in static shared
-// memory, the per-block lattice words (4 bytes per 16x16 luma block) come
-// from L2.  Lane words add 4 bytes per column and block row (33 MB per 4K
-// batch of 8 frames), read under the arithmetic: the kernel is bound by its
-// integer instructions, and the lane decode is shorter than the lattice's.
+// What bounds it on this card.  Bytes set the floor: a 3840x2160 10-bit
+// 4:2:0 frame is 24,883,200 bytes, read once and written once, and every
+// table stays on chip (the 32 KB pattern bank and the 512-byte LUT pair in
+// shared memory, the lattice words, 4 bytes per 16x16 luma block, from L2).
+// Above it sit the shared-memory and integer instructions: per pixel a
+// pattern LUT read, a pattern read at a data-dependent address (bank
+// conflicts follow the data), a scale LUT read and about a dozen integer
+// operations, no one stage of them dominating (the per-stage budget,
+// tools/probe_budget.py, splits the time).  So the design spends no
+// instruction twice
+// (grain_natural_body.cuh, K1's kernel): a thread owns 8 consecutive
+// columns and walks the block row's lines, decodes its block's offsets
+// once per block row, moves its pixels as one vector a line, and computes
+// each pixel's grain sample once, the deblock taking an edge's neighbour
+// samples from the lanes that computed them (warp shuffles; one extra
+// sample at each end of a warp).
 //
-// The device code (offset decode, grain sample, per-pixel body and the
-// kernel) is in grain_natural_body.cuh, shared with the two probes that
-// fork it (probe_budget.cu, probe_pipe.cu); this file instantiates it with
-// no stage removed (kSkip = 0) and holds the C entry point.
+// The device code is in grain_natural_body.cuh, shared with the two probes
+// that fork K1 (probe_budget.cu, probe_pipe.cu); this file instantiates it
+// with no stage removed (kSkip = 0) and holds the C entry points.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/_kernels.py does this at first use).
@@ -44,21 +49,42 @@ namespace {
 
 using namespace vfg;
 
-// Launch one kernel instance for a sample type and a word input.
+// Launch K1 for a sample type and a word input.
 template <typename T>
-void launch(const void* in, void* out, const uint32_t* words,
-            const uint32_t* up0, int lane, const int8_t* p, const uint8_t* sl,
-            const uint8_t* pl, const int* sc, int frames, int rows, int cols,
-            const Plane& g, int zero_scale, int blend0, cudaStream_t st) {
-  const dim3 grid(unsigned(frames) * unsigned(rows));
+int launch(const void* in, void* out, const uint32_t* words,
+           const uint32_t* up0, int lane, const int8_t* p, const uint8_t* sl,
+           const uint8_t* pl, const int* sc, int frames, int rows, int cols,
+           const Plane& g, int zero_scale, int blend0, cudaStream_t st) {
   const T* i = static_cast<const T*>(in);
   T* o = static_cast<T*>(out);
   if (lane)
-    grain_plane_kernel<T, true, 0><<<grid, kThreads, 0, st>>>(
-        i, o, words, up0, p, sl, pl, sc, rows, cols, g, zero_scale, blend0);
-  else
-    grain_plane_kernel<T, false, 0><<<grid, kThreads, 0, st>>>(
-        i, o, words, up0, p, sl, pl, sc, rows, cols, g, zero_scale, blend0);
+    return launch_grain_plane<T, true, 0>(i, o, words, up0, p, sl, pl, sc,
+                                          frames, rows, cols, g, zero_scale,
+                                          blend0, st);
+  return launch_grain_plane<T, false, 0>(i, o, words, up0, p, sl, pl, sc,
+                                         frames, rows, cols, g, zero_scale,
+                                         blend0, st);
+}
+
+template <typename T, bool kLane, bool kVec>
+int info(int* regs, int* smem, int* blocks) {
+  const auto fn = grain_plane_kernel<T, kLane, 0, kVec>;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return int(e);
+  *regs = a.numRegs;
+  *smem = int(a.sharedSizeBytes);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                           kThreads, 0));
+}
+
+template <typename T>
+int info(int lane, int vec, int* regs, int* smem, int* blocks) {
+  if (lane)
+    return vec ? info<T, true, true>(regs, smem, blocks)
+               : info<T, true, false>(regs, smem, blocks);
+  return vec ? info<T, false, true>(regs, smem, blocks)
+             : info<T, false, false>(regs, smem, blocks);
 }
 
 }  // namespace
@@ -71,8 +97,8 @@ void launch(const void* in, void* out, const uint32_t* words,
 // blend; may be null then); `pattern`: this plane class's (8, 64, 64) int8
 // bank, 16-byte aligned; `slut`/`plut`: this component's 256-entry uint8
 // LUTs; `scalars`: int32 [scale_shift, y_min, y_max, c_min, c_max].  All
-// pointers are device pointers.  Launches on `stream` and returns
-// cudaGetLastError().
+// pointers are device pointers; `in` and `out` at least aligned to a
+// sample.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int vfg_grain_plane(const void* in, void* out, int elem_bytes,
                                const void* words, int lane, const void* up0,
                                int blend0, const void* pattern,
@@ -94,10 +120,21 @@ extern "C" int vfg_grain_plane(const void* in, void* out, int elem_bytes,
   const uint8_t* pl = static_cast<const uint8_t*>(plut);
   const int* sc = static_cast<const int*>(scalars);
   if (elem_bytes == 1)
-    launch<uint8_t>(in, out, w, u, lane, p, sl, pl, sc, frames, rows, cols, g,
-                    zero_scale, blend0, st);
-  else
-    launch<uint16_t>(in, out, w, u, lane, p, sl, pl, sc, frames, rows, cols,
-                     g, zero_scale, blend0, st);
-  return int(cudaGetLastError());
+    return launch<uint8_t>(in, out, w, u, lane, p, sl, pl, sc, frames, rows,
+                           cols, g, zero_scale, blend0, st);
+  return launch<uint16_t>(in, out, w, u, lane, p, sl, pl, sc, frames, rows,
+                          cols, g, zero_scale, blend0, st);
+}
+
+// Registers per thread, static shared memory bytes per thread block and
+// thread blocks per SM (the occupancy calculator, at kThreads threads) of
+// K1's instance for `elem_bytes`, `lane` and `vec` (1: the vector instance,
+// 0: the sample-at-a-time one).  Returns the first CUDA error, or
+// cudaSuccess.
+extern "C" int vfg_grain_plane_info(int elem_bytes, int lane, int vec,
+                                    int* regs, int* smem, int* blocks) {
+  if ((elem_bytes != 1 && elem_bytes != 2) || (lane != 0 && lane != 1))
+    return int(cudaErrorInvalidValue);
+  return elem_bytes == 1 ? info<uint8_t>(lane, vec, regs, smem, blocks)
+                         : info<uint16_t>(lane, vec, regs, smem, blocks);
 }

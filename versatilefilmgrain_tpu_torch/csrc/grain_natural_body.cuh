@@ -1,8 +1,9 @@
 // The device code of the natural-layout grain kernel (K1), shared by
 // grain_natural.cu (K1 itself) and the two probes that fork it:
-// probe_budget.cu (per-stage budget, K5) and probe_pipe.cu (prefetch
-// pipeline, K4).  A probe that includes this header cannot drift from the
-// shipped kernel.
+// probe_budget.cu (per-stage budget, K5, which instantiates K1's kernel
+// with a stage mask) and probe_pipe.cu (prefetch pipeline, K4, which runs
+// the per-pixel body grain_pixel in its own schedule).  A probe that
+// includes this header cannot drift from the shipped kernel.
 //
 // Per pixel (f, y, x) of plane c, block row r = y / bh, block column
 // b = x / bw (reference: vfgs_hw.c:140-312, JAX ops/grain_jnp.py):
@@ -37,6 +38,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace vfg {
 
@@ -143,15 +146,26 @@ __device__ __forceinline__ void offsets_at(const uint32_t* __restrict__ words,
   }
 }
 
-// Pattern sample at row `row`, column `col` of the pattern `p` (pattern
-// index pi), or its stand-in under kNoFetch.
+// Pattern index pi of a pixel of intensity `inten`.
 template <int kSkip>
-__device__ __forceinline__ int fetch(const int8_t* p, int pi, int row,
-                                     int col) {
-  if constexpr ((kSkip & kNoFetch) != 0)
-    return (((row * 64 + col + pi) & 0xFF) ^ 0x80) - 0x80;
+__device__ __forceinline__ int pattern_of(int inten, const uint8_t* plut,
+                                          const Plane& g) {
+  if constexpr ((kSkip & kNoLut) != 0)
+    return inten & g.pat_mask;
+  else if constexpr ((kSkip & kNoSelect) != 0)
+    return 0;
   else
-    return int(tab<kSkip>(p, row * 64 + col));
+    return tab<kSkip>(plut, inten) >> 4;
+}
+
+// Sample at the flat index idx = row * 64 + col of the bank's pattern pi,
+// or its stand-in under kNoFetch.
+template <int kSkip>
+__device__ __forceinline__ int fetch_at(const int8_t* pat, int pi, int idx) {
+  if constexpr ((kSkip & kNoFetch) != 0)
+    return (((idx + pi) & 0xFF) ^ 0x80) - 0x80;
+  else
+    return int(tab<kSkip>(pat, pi * (64 * 64) + idx));
 }
 
 // Blended, pre-deblock grain sample of column x on line j of the block row.
@@ -164,22 +178,15 @@ __device__ __forceinline__ int grain_sample(const T* __restrict__ row,
                                             const int8_t* pat,
                                             const uint8_t* plut, int x, int j,
                                             const Plane& g) {
-  const int inten = (int(row[x]) >> g.bs) & 0xFF;
-  int pi;
-  if constexpr ((kSkip & kNoLut) != 0)
-    pi = inten & g.pat_mask;
-  else if constexpr ((kSkip & kNoSelect) != 0)
-    pi = 0;
-  else
-    pi = tab<kSkip>(plut, inten) >> 4;
-  const int8_t* p = pat + pi * (64 * 64);
+  const int pi = pattern_of<kSkip>((int(row[x]) >> g.bs) & 0xFF, plut, g);
   int s, col, oy;
   offsets_at<kLane, Ld>(words, x, g, s, col, oy);
-  int P = s * fetch<kSkip>(p, pi, oy + j, col);
+  int P = s * fetch_at<kSkip>(pat, pi, (oy + j) * 64 + col);
   if ((kSkip & kNoBlend) == 0 && up != nullptr && j < g.n_ov) {
     int su, colu, oyu;
     offsets_at<kLane, Ld>(up, x, g, su, colu, oyu);
-    const int Pu = su * fetch<kSkip>(p, pi, oyu + g.bh + j, colu);
+    const int Pu =
+        su * fetch_at<kSkip>(pat, pi, (oyu + g.bh + j) * 64 + colu);
     const int oc1 = g.n_ov == 1 ? 20 : (j == 0 ? 12 : 24);
     const int oc2 = g.n_ov == 1 ? 20 : (j == 0 ? 24 : 12);
     P = (P * oc1 + Pu * oc2 + 16) >> 5;
@@ -190,7 +197,9 @@ __device__ __forceinline__ int grain_sample(const T* __restrict__ row,
 // Output sample of column x on line j of a block row: grain sample,
 // deblock, scale, add, clip.  `row` is the line's input samples, indexed by
 // plane column; `Wp` the plane width; `bias`/`ss` the rounding bias and
-// scale shift; `imin`/`imax` the clip range shifted by bs.
+// scale shift; `imin`/`imax` the clip range shifted by bs.  This is the
+// per-pixel body of the prefetch probe (K4, probe_pipe.cu), which samples
+// an edge pixel's neighbours again; K1's kernel below shares them.
 template <int kSkip, bool kLane, class Ld, typename T>
 __device__ __forceinline__ T grain_pixel(const T* __restrict__ row,
                                          const uint32_t* __restrict__ words,
@@ -228,12 +237,139 @@ __device__ __forceinline__ T grain_pixel(const T* __restrict__ row,
   }
 }
 
-// One thread block per (frame, block row): grid.x = F * R.  Threads stride
-// over the columns of each of the block row's bh lines.  The plane class's
-// pattern bank and the component's two LUTs are staged in shared memory
-// (read from device memory under kNoStage).
-template <typename T, bool kLane, int kSkip>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// K1's kernel
+//
+// One thread block of kThreads threads per (frame, block row): grid.x =
+// F * R.  The plane class's pattern bank (32 KB) and the component's two
+// LUTs are staged in shared memory (read from device memory under
+// kNoStage).
+//
+// Columns are owned, not strided.  A thread owns runs of kRun = 8
+// consecutive columns (Wp = C * bw is a multiple of 8, so no run is
+// ragged); the lanes of a warp hold consecutive runs; the thread walks the
+// block row's bh lines with its run in registers, column outside, line
+// inside.  A run lies inside one block (bw is 8 or 16), so the thread
+// decodes its block's word, and where the row blends the upper block's,
+// once per block row (lane words: its 8 columns' words); a line only adds
+// j * 64 to the pattern indexes.  Pixels move as one vector a line per
+// thread, 16 bytes of uint16 or 8 bytes of uint8 (kVec), or sample by
+// sample where a plane's pointer is not aligned to that vector: rows are
+// Wp samples apart, a multiple of the vector, so the base pointer decides.
+//
+// Each pixel's blended sample is computed once a line, and the deblock
+// reads a neighbour's from the lane that computed it: inside a run from the
+// thread's own registers (a run's interior columns are never block edges),
+// across runs by __shfl_up_sync / __shfl_down_sync.  At a warp's two ends
+// the neighbour run belongs to another warp, so lane 0 also samples column
+// x0 - 1 and lane 31 column x0 + 8, from that column's pixel and its
+// block's offsets, decoded once per block row like its own: 8 samples per
+// run and line, and one more per warp end.
+
+constexpr int kRun = 8;  // columns a thread owns, consecutive
+
+// Sign and flat pattern index (row * 64 + col on line 0 of the block row,
+// `drow` rows down) of kN consecutive columns from x, decoded from one
+// block row's words.  kN = 1 with lattice words stands for a whole run:
+// its columns share the block's sign, and column k's index is idx + k.
+template <bool kLane, int kN>
+struct Offsets {
+  int s[kN], idx[kN];
+
+  __device__ __forceinline__ void decode(const uint32_t* __restrict__ words,
+                                         int x, int drow, const Plane& g) {
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      int col, oy;
+      offsets_at<kLane, GlobalWords>(words, x + k, g, s[k], col, oy);
+      idx[k] = (oy + drow) * 64 + col;
+    }
+  }
+  __device__ __forceinline__ int sign(int k) const {
+    return s[kN == 1 ? 0 : k];
+  }
+  __device__ __forceinline__ int at(int k) const {
+    return kN == 1 ? idx[0] + k : idx[k];
+  }
+};
+
+// Blended, pre-deblock sample on the line j64 / 64 of a pixel of pattern
+// pi: own block's sign s and index idx, and under kBlend the upper block's
+// su and idxu with the line's weights w1, w2.
+template <int kSkip, bool kBlend>
+__device__ __forceinline__ int sample_at(const int8_t* pat, int pi, int s,
+                                         int idx, int su, int idxu, int j64,
+                                         int w1, int w2) {
+  int P = s * fetch_at<kSkip>(pat, pi, idx + j64);
+  if constexpr (kBlend) {
+    const int Pu = su * fetch_at<kSkip>(pat, pi, idxu + j64);
+    P = (P * w1 + Pu * w2 + 16) >> 5;
+  }
+  return P;
+}
+
+// The kRun samples of a run from p as loaded: one 16-byte (uint16) or
+// 8-byte (uint8) vector under kVec, else one load a sample.
+template <typename T, bool kVec>
+struct RunBits {
+  T v[kRun];
+  __device__ __forceinline__ void load(const T* __restrict__ p) {
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) v[k] = __ldg(p + k);
+  }
+  __device__ __forceinline__ int operator[](int k) const { return int(v[k]); }
+};
+
+template <>
+struct RunBits<uint16_t, true> {
+  uint4 w;
+  __device__ __forceinline__ void load(const uint16_t* __restrict__ p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ int operator[](int k) const {
+    const uint32_t u = k < 2 ? w.x : k < 4 ? w.y : k < 6 ? w.z : w.w;
+    return int((u >> (16 * (k & 1))) & 0xFFFFu);
+  }
+};
+
+template <>
+struct RunBits<uint8_t, true> {
+  uint2 w;
+  __device__ __forceinline__ void load(const uint8_t* __restrict__ p) {
+    w = __ldg(reinterpret_cast<const uint2*>(p));
+  }
+  __device__ __forceinline__ int operator[](int k) const {
+    return int(((k < 4 ? w.x : w.y) >> (8 * (k & 3))) & 0xFFu);
+  }
+};
+
+// Store kRun samples from p, as RunBits loads them; a sample keeps its low
+// bits, as the conversion to T does.
+template <typename T, bool kVec>
+__device__ __forceinline__ void store_run(T* p, const int (&v)[kRun]) {
+  if constexpr (kVec && sizeof(T) == 2) {
+    uint32_t u[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      u[k] = (uint32_t(v[2 * k]) & 0xFFFFu) | (uint32_t(v[2 * k + 1]) << 16);
+    *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
+  } else if constexpr (kVec) {
+    uint32_t u[2] = {0u, 0u};
+#pragma unroll
+    for (int k = 0; k < kRun; ++k)
+      u[k >> 2] |= (uint32_t(v[k]) & 0xFFu) << (8 * (k & 3));
+    *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) p[k] = T(v[k]);
+  }
+}
+
+// The lattice instance is held to 64 registers, 4 thread blocks per SM; the
+// lane-word instance keeps its 8 columns' offsets in registers and takes
+// what it needs (2 blocks per SM).
+template <typename T, bool kLane, int kSkip, bool kVec>
+__global__ void __launch_bounds__(kThreads, kLane ? 1 : 4)
 grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
                    const uint32_t* __restrict__ words,
                    const uint32_t* __restrict__ up0,
@@ -245,19 +381,24 @@ grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
   const int fr = blockIdx.x;  // f * R + r
   const int r = fr % R;
   const int Wp = C * g.bw;
-  const size_t base = size_t(fr) * g.bh * Wp;
+  const int runs = Wp / kRun;
+  const T* src = in + size_t(fr) * g.bh * Wp;
+  T* dst = out + size_t(fr) * g.bh * Wp;
   const int imin = __ldg(scalars + (g.c ? 3 : 1)) << g.bs;
   const int imax = __ldg(scalars + (g.c ? 4 : 2)) << g.bs;
 
   if (zero_scale) {
     // Identically zero scale LUT: the grain is exactly 0, only the clip is
     // left (the C model still runs its per-pixel loop, vfgs_hw.c:266-276).
-    for (int j = 0; j < g.bh; ++j) {
-      const T* row = in + base + size_t(j) * Wp;
-      T* orow = out + base + size_t(j) * Wp;
-      for (int x = threadIdx.x; x < Wp; x += kThreads)
-        orow[x] = T(min(max(int(row[x]), imin), imax));
-    }
+    for (int q = threadIdx.x; q < runs; q += kThreads)
+      for (int j = 0; j < g.bh; ++j) {
+        RunBits<T, kVec> bits;
+        bits.load(src + size_t(j) * Wp + q * kRun);
+        int v[kRun];
+#pragma unroll
+        for (int k = 0; k < kRun; ++k) v[k] = min(max(bits[k], imin), imax);
+        store_run<T, kVec>(dst + size_t(j) * Wp + q * kRun, v);
+      }
     return;
   }
 
@@ -268,10 +409,10 @@ grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
     __shared__ __align__(16) int8_t s_pat[kPatternBytes];
     __shared__ uint8_t s_slut[256];
     __shared__ uint8_t s_plut[256];
-    const int4* src = reinterpret_cast<const int4*>(pattern);
-    int4* dst = reinterpret_cast<int4*>(s_pat);
+    const int4* bank = reinterpret_cast<const int4*>(pattern);
+    int4* sbank = reinterpret_cast<int4*>(s_pat);
     for (int k = threadIdx.x; k < kPatternBytes / 16; k += kThreads)
-      dst[k] = __ldg(src + k);
+      sbank[k] = __ldg(bank + k);
     s_slut[threadIdx.x] = slut[threadIdx.x];
     s_plut[threadIdx.x] = plut[threadIdx.x];
     __syncthreads();
@@ -287,13 +428,135 @@ grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
   const uint32_t* up = r > 0    ? lrow - stride
                        : blend0 ? up0 + size_t(fr / R) * stride
                                 : nullptr;
-  for (int j = 0; j < g.bh; ++j) {
-    const T* row = in + base + size_t(j) * Wp;
-    T* orow = out + base + size_t(j) * Wp;
-    for (int x = threadIdx.x; x < Wp; x += kThreads)
-      orow[x] = grain_pixel<kSkip, kLane, GlobalWords>(
-          row, lrow, up, pat, sl, pl, x, j, Wp, bias, ss, imin, imax, g);
+  constexpr bool kDeblock = (kSkip & kNoDeblock) == 0;
+  // lines loaded ahead of the one computed (bh is at least 8)
+  constexpr int kAhead = kLane ? 1 : 2;
+  // lines of the block row that blend with the upper block row
+  const int n_bl = ((kSkip & kNoBlend) == 0 && up != nullptr) ? g.n_ov : 0;
+  const int lane = threadIdx.x & 31;
+  const bool end_lane = lane == 0 || lane == 31;
+
+  // The warp's runs q0 .. q0 + 31, q0 warp-uniform: lanes past the row's
+  // last run repeat it (they take part in the shuffles) and store nothing.
+  for (int q0 = threadIdx.x - lane; q0 < runs; q0 += kThreads) {
+    const bool live = q0 + lane < runs;
+    const int x0 = min(q0 + lane, runs - 1) * kRun;
+    // block edges of the run (columns 0 and Wp - 1 do not deblock)
+    const bool left = (x0 & (g.bw - 1)) == 0 && x0 > 0;
+    const bool right = ((x0 + kRun) & (g.bw - 1)) == 0 && x0 + kRun < Wp;
+    // the end lanes' extra column, clamped into the plane where it is
+    // outside (and then unused)
+    const int xe = lane == 0 ? max(x0 - 1, 0) : min(x0 + kRun, Wp - 1);
+    Offsets<kLane, kLane ? kRun : 1> own, upper;
+    Offsets<kLane, 1> ext, ext_up;
+    own.decode(lrow, x0, 0, g);
+    if (kDeblock && end_lane) ext.decode(lrow, xe, 0, g);
+    if (n_bl > 0) {
+      upper.decode(up, x0, g.bh, g);
+      if (kDeblock && end_lane) ext_up.decode(up, xe, g.bh, g);
+    }
+
+    // Line j from its pixels `bits` and, at an end lane, the extra
+    // column's pixel pe.
+    auto line = [&](auto blended, int j, const RunBits<T, kVec>& bits,
+                    int pe) {
+      constexpr bool kBlend = decltype(blended)::value;
+      const int w1 = g.n_ov == 1 ? 20 : (j == 0 ? 12 : 24);
+      const int w2 = g.n_ov == 1 ? 20 : (j == 0 ? 24 : 12);
+      const int j64 = j * 64;
+      int pix[kRun], inten[kRun], P[kRun];
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        pix[k] = bits[k];
+        inten[k] = (pix[k] >> g.bs) & 0xFF;
+        P[k] = sample_at<kSkip, kBlend>(
+            pat, pattern_of<kSkip>(inten[k], pl, g), own.sign(k), own.at(k),
+            upper.sign(k), upper.at(k), j64, w1, w2);
+      }
+      if constexpr (kDeblock) {
+        int Pe = 0;
+        if (end_lane) {
+          const int ie = (pe >> g.bs) & 0xFF;
+          Pe = sample_at<kSkip, kBlend>(pat, pattern_of<kSkip>(ie, pl, g),
+                                        ext.sign(0), ext.at(0),
+                                        ext_up.sign(0), ext_up.at(0), j64,
+                                        w1, w2);
+        }
+        const int from_left = __shfl_up_sync(0xFFFFFFFFu, P[kRun - 1], 1);
+        const int from_right = __shfl_down_sync(0xFFFFFFFFu, P[0], 1);
+        const int Pl = lane == 0 ? Pe : from_left;
+        const int Pr = lane == 31 ? Pe : from_right;
+        const int first = (Pl + 3 * P[0] + P[1] + 2) >> 2;
+        const int last = (P[kRun - 2] + 3 * P[kRun - 1] + Pr + 2) >> 2;
+        if (left) P[0] = first;
+        if (right) P[kRun - 1] = last;
+      }
+      int o[kRun];
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) {
+        if constexpr ((kSkip & kNoEpilogue) != 0) {
+          o[k] = pix[k] + P[k];
+        } else {
+          int sc;
+          if constexpr ((kSkip & kNoLut) != 0)
+            sc = inten[k];
+          else
+            sc = tab<kSkip>(sl, inten[k]);
+          o[k] = min(max(pix[k] + ((sc * P[k] + bias) >> ss), imin), imax);
+        }
+      }
+      if (live) store_run<T, kVec>(dst + size_t(j) * Wp + x0, o);
+    };
+    // Each line's pixels are loaded kAhead lines ahead, in flight while
+    // the lines before are computed (ring[0] is line j's).
+    RunBits<T, kVec> ring[kAhead + 1];
+    int pe[kAhead + 1] = {};
+#pragma unroll
+    for (int a = 0; a < kAhead; ++a) {
+      ring[a].load(src + size_t(a) * Wp + x0);
+      if (kDeblock && end_lane) pe[a] = int(__ldg(src + size_t(a) * Wp + xe));
+    }
+    for (int j = 0; j < g.bh; ++j) {
+      if (j + kAhead < g.bh) {
+        const T* row = src + size_t(j + kAhead) * Wp;
+        ring[kAhead].load(row + x0);
+        if (kDeblock && end_lane) pe[kAhead] = int(__ldg(row + xe));
+      }
+      if (j < n_bl)
+        line(std::true_type(), j, ring[0], pe[0]);
+      else
+        line(std::false_type(), j, ring[0], pe[0]);
+#pragma unroll
+      for (int a = 0; a < kAhead; ++a) {
+        ring[a] = ring[a + 1];
+        pe[a] = pe[a + 1];
+      }
+    }
   }
+}
+
+// Launch K1's kernel with stage mask kSkip on one plane (arguments as
+// grain_plane_kernel's; `frames` x `rows` block rows): the vector instance
+// where `in` and `out` are both aligned to a run of samples, else the one
+// that moves a sample at a time.  Returns cudaGetLastError().
+template <typename T, bool kLane, int kSkip>
+int launch_grain_plane(const T* in, T* out, const uint32_t* words,
+                       const uint32_t* up0, const int8_t* p,
+                       const uint8_t* sl, const uint8_t* pl, const int* sc,
+                       int frames, int rows, int cols, const Plane& g,
+                       int zero_scale, int blend0, cudaStream_t st) {
+  const dim3 grid(unsigned(frames) * unsigned(rows));
+  const uintptr_t a =
+      reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out);
+  if (a % (kRun * sizeof(T)) == 0)
+    grain_plane_kernel<T, kLane, kSkip, true><<<grid, kThreads, 0, st>>>(
+        in, out, words, up0, p, sl, pl, sc, rows, cols, g, zero_scale,
+        blend0);
+  else
+    grain_plane_kernel<T, kLane, kSkip, false><<<grid, kThreads, 0, st>>>(
+        in, out, words, up0, p, sl, pl, sc, rows, cols, g, zero_scale,
+        blend0);
+  return int(cudaGetLastError());
 }
 
 }  // namespace vfg

@@ -26,13 +26,13 @@ namespace {
 using namespace vfg;
 
 template <int kSkip>
-void launch(const uint16_t* in, uint16_t* out, const uint32_t* words,
-            const int8_t* p, const uint8_t* sl, const uint8_t* pl,
-            const int* sc, int frames, int rows, int cols, const Plane& g,
-            int zero_scale, cudaStream_t st) {
-  const dim3 grid(unsigned(frames) * unsigned(rows));
-  grain_plane_kernel<uint16_t, false, kSkip><<<grid, kThreads, 0, st>>>(
-      in, out, words, nullptr, p, sl, pl, sc, rows, cols, g, zero_scale, 0);
+int launch(const uint16_t* in, uint16_t* out, const uint32_t* words,
+           const int8_t* p, const uint8_t* sl, const uint8_t* pl,
+           const int* sc, int frames, int rows, int cols, const Plane& g,
+           int zero_scale, cudaStream_t st) {
+  return launch_grain_plane<uint16_t, false, kSkip>(
+      in, out, words, nullptr, p, sl, pl, sc, frames, rows, cols, g,
+      zero_scale, 0, st);
 }
 
 }  // namespace
@@ -63,11 +63,10 @@ extern "C" int vfg_probe_budget(const void* in, void* out, const void* words,
   const uint8_t* sl = static_cast<const uint8_t*>(slut);
   const uint8_t* pl = static_cast<const uint8_t*>(plut);
   const int* sc = static_cast<const int*>(scalars);
-#define VFG_VARIANT(M)                                                    \
-  case M:                                                                 \
-    launch<M>(i, o, w, p, sl, pl, sc, frames, rows, cols, g, zero_scale, \
-              st);                                                        \
-    break;
+#define VFG_VARIANT(M)                                              \
+  case M:                                                           \
+    return launch<M>(i, o, w, p, sl, pl, sc, frames, rows, cols, g, \
+                     zero_scale, st);
   switch (skip) {
     VFG_VARIANT(0)
     VFG_VARIANT(kNoLut)
@@ -81,5 +80,4 @@ extern "C" int vfg_probe_budget(const void* in, void* out, const void* words,
       return int(cudaErrorInvalidValue);
   }
 #undef VFG_VARIANT
-  return int(cudaGetLastError());
 }

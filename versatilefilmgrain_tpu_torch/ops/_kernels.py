@@ -104,6 +104,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             i, i, i,                # frames, rows, cols
             i, i, i, i, i,          # c, csubx, csuby, bs, zero_scale
             vp]                     # stream
+        lib.vfg_grain_plane_info.restype = i
+        lib.vfg_grain_plane_info.argtypes = [
+            i, i, i,                # elem_bytes, lane, vec
+            ctypes.POINTER(i), ctypes.POINTER(i),  # registers, static smem
+            ctypes.POINTER(i)]      # blocks per SM
     elif name == "grain_tiled":
         lib.vfg_grain_tiled.restype = i
         lib.vfg_grain_tiled.argtypes = [

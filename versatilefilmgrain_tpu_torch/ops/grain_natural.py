@@ -332,6 +332,23 @@ grain_plane_cuda.launches = 0
 grain_plane_cuda.boot_launches = 0
 
 
+def grain_plane_info(elem_bytes: int, lane: bool, vec: bool) -> dict:
+    """Registers per thread, static shared memory bytes per thread block
+    and thread blocks per SM (the CUDA occupancy calculator) of
+    csrc/grain_natural.cu's instance for ``elem_bytes`` (1 or 2), lattice
+    or lane words, and vector (aligned planes) or sample-at-a-time access.
+    Builds the kernel; needs a card."""
+    regs, smem, blocks = (ctypes.c_int() for _ in range(3))
+    rc = _kernels.load("grain_natural").vfg_grain_plane_info(
+        elem_bytes, int(lane), int(vec), ctypes.byref(regs),
+        ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"grain_natural kernel info failed: CUDA error "
+                           f"{rc}")
+    return dict(registers=regs.value, static_smem=smem.value,
+                blocks_per_sm=blocks.value)
+
+
 def _active(tables: dict):
     return tuple(not z for z in tables["zero_scale"])
 
