@@ -14,9 +14,10 @@ Phases, one result line each:
   3. kernel   -- the kernel against its plain torch version on the card at
                  3840x2160 10-bit 4:2:0, default config, one batch of 8
                  frames; exact equality on all planes; both timed with CUDA
-                 events; registers, static shared memory and thread blocks
-                 per SM of each K1 instance, and the SASS counts of the
-                 main path's;
+                 events; registers, static shared memory, local memory
+                 (stack and spills) and thread blocks per SM of each K1
+                 instance, and the SASS counts of the main path's (LDL and
+                 STL among them);
   4. geometry -- the same comparison at small sizes for other configs,
                  depths, chroma formats, a pad-leak and an unaligned width;
   5. golden   -- the 48 golden CLI cases through the port's CLI on the card,
@@ -384,20 +385,19 @@ def main() -> int:
           f"card {card}")
     kernel_ms, plain_ms = min(ms_k, ms_k2), min(ms_p, ms_p2)
     phase("kernel", "K1 instances, registers / static shared memory bytes / "
-          "thread blocks per SM at 256 threads (occupancy calculator): "
-          + ", ".join(
-              "uint{} {} {} {registers} / {static_smem} / {blocks_per_sm}"
-              .format(8 * eb, "lanes" if lane else "lattice",
-                      "vector" if vec else "sample-wise",
-                      **grain_natural.grain_plane_info(eb, lane, vec))
-              for eb in (2, 1) for lane in (False, True)
-              for vec in (True, False)))
-    phase("kernel", "K1's uint16 lattice vector instance (this phase's): "
+          "local memory bytes per thread / thread blocks per SM at 256 "
+          "threads (occupancy calculator): " + ", ".join(
+              "uint{} {} {registers} / {static_smem} / {local_bytes} / "
+              "{blocks_per_sm}".format(
+                  8 * eb, "lanes" if lane else "lattice",
+                  **grain_natural.grain_plane_info(eb, lane))
+              for eb in (2, 1) for lane in (False, True)))
+    phase("kernel", "K1's uint16 lattice instance (this phase's): "
           + sass_counts(_kernels, "grain_natural",
-                        "grain_plane_kernelItLb0ELi0ELb1E",
-                        keys=("LDG", "LDS", "STG", "SHFL", "IMAD", "IADD3",
-                              "LOP3", "SHF", "ISETP", "SEL", "PRMT",
-                              "BRA")))
+                        "grain_plane_kernelItLb0ELi0EE",
+                        keys=("LDG", "LDS", "STG", "LDL", "STL", "SHFL",
+                              "IMAD", "IADD3", "LOP3", "SHF", "ISETP", "SEL",
+                              "PRMT", "BRA")))
     tbytes = tensor_bytes(*(tables[k] for k in ("pattern", "slut", "plut",
                                                 "scalars")))
     k1_bound = byte_bound_ms(nbytes + lat32.numel() * 4 + tbytes)

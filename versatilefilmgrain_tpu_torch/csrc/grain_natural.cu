@@ -66,25 +66,23 @@ int launch(const void* in, void* out, const uint32_t* words,
                                          blend0, st);
 }
 
-template <typename T, bool kLane, bool kVec>
-int info(int* regs, int* smem, int* blocks) {
-  const auto fn = grain_plane_kernel<T, kLane, 0, kVec>;
+template <typename T, bool kLane>
+int info(int* regs, int* smem, int* local, int* blocks) {
+  const auto fn = grain_plane_kernel<T, kLane, 0>;
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fn);
   if (e != cudaSuccess) return int(e);
   *regs = a.numRegs;
   *smem = int(a.sharedSizeBytes);
+  *local = int(a.localSizeBytes);
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
                                                            kThreads, 0));
 }
 
 template <typename T>
-int info(int lane, int vec, int* regs, int* smem, int* blocks) {
-  if (lane)
-    return vec ? info<T, true, true>(regs, smem, blocks)
-               : info<T, true, false>(regs, smem, blocks);
-  return vec ? info<T, false, true>(regs, smem, blocks)
-             : info<T, false, false>(regs, smem, blocks);
+int info(int lane, int* regs, int* smem, int* local, int* blocks) {
+  return lane ? info<T, true>(regs, smem, local, blocks)
+              : info<T, false>(regs, smem, local, blocks);
 }
 
 }  // namespace
@@ -97,8 +95,9 @@ int info(int lane, int vec, int* regs, int* smem, int* blocks) {
 // blend; may be null then); `pattern`: this plane class's (8, 64, 64) int8
 // bank, 16-byte aligned; `slut`/`plut`: this component's 256-entry uint8
 // LUTs; `scalars`: int32 [scale_shift, y_min, y_max, c_min, c_max].  All
-// pointers are device pointers; `in` and `out` at least aligned to a
-// sample.  Launches on `stream` and returns cudaGetLastError().
+// pointers are device pointers; `in` and `out` aligned to 8 samples (a
+// thread's run).  Launches on `stream` and returns cudaGetLastError(), or
+// cudaErrorInvalidValue for an argument out of range or an unaligned plane.
 extern "C" int vfg_grain_plane(const void* in, void* out, int elem_bytes,
                                const void* words, int lane, const void* up0,
                                int blend0, const void* pattern,
@@ -126,15 +125,14 @@ extern "C" int vfg_grain_plane(const void* in, void* out, int elem_bytes,
                           cols, g, zero_scale, blend0, st);
 }
 
-// Registers per thread, static shared memory bytes per thread block and
-// thread blocks per SM (the occupancy calculator, at kThreads threads) of
-// K1's instance for `elem_bytes`, `lane` and `vec` (1: the vector instance,
-// 0: the sample-at-a-time one).  Returns the first CUDA error, or
-// cudaSuccess.
-extern "C" int vfg_grain_plane_info(int elem_bytes, int lane, int vec,
-                                    int* regs, int* smem, int* blocks) {
+// Registers per thread, static shared memory bytes per thread block, local
+// memory bytes per thread (stack and spills) and thread blocks per SM (the
+// occupancy calculator, at kThreads threads) of K1's instance for
+// `elem_bytes` and `lane`.  Returns the first CUDA error, or cudaSuccess.
+extern "C" int vfg_grain_plane_info(int elem_bytes, int lane, int* regs,
+                                    int* smem, int* local, int* blocks) {
   if ((elem_bytes != 1 && elem_bytes != 2) || (lane != 0 && lane != 1))
     return int(cudaErrorInvalidValue);
-  return elem_bytes == 1 ? info<uint8_t>(lane, vec, regs, smem, blocks)
-                         : info<uint16_t>(lane, vec, regs, smem, blocks);
+  return elem_bytes == 1 ? info<uint8_t>(lane, regs, smem, local, blocks)
+                         : info<uint16_t>(lane, regs, smem, local, blocks);
 }

@@ -253,9 +253,9 @@ __device__ __forceinline__ T grain_pixel(const T* __restrict__ row,
 // decodes its block's word, and where the row blends the upper block's,
 // once per block row (lane words: its 8 columns' words); a line only adds
 // j * 64 to the pattern indexes.  Pixels move as one vector a line per
-// thread, 16 bytes of uint16 or 8 bytes of uint8 (kVec), or sample by
-// sample where a plane's pointer is not aligned to that vector: rows are
-// Wp samples apart, a multiple of the vector, so the base pointer decides.
+// thread, 16 bytes of uint16 or 8 bytes of uint8: rows are Wp samples
+// apart, a multiple of the vector, so a plane whose pointer is aligned to
+// a run (the caller's to ensure) keeps every run aligned.
 //
 // Each pixel's blended sample is computed once a line, and the deblock
 // reads a neighbour's from the lane that computed it: inside a run from the
@@ -309,19 +309,12 @@ __device__ __forceinline__ int sample_at(const int8_t* pat, int pi, int s,
 }
 
 // The kRun samples of a run from p as loaded: one 16-byte (uint16) or
-// 8-byte (uint8) vector under kVec, else one load a sample.
-template <typename T, bool kVec>
-struct RunBits {
-  T v[kRun];
-  __device__ __forceinline__ void load(const T* __restrict__ p) {
-#pragma unroll
-    for (int k = 0; k < kRun; ++k) v[k] = __ldg(p + k);
-  }
-  __device__ __forceinline__ int operator[](int k) const { return int(v[k]); }
-};
+// 8-byte (uint8) vector.
+template <typename T>
+struct RunBits;
 
 template <>
-struct RunBits<uint16_t, true> {
+struct RunBits<uint16_t> {
   uint4 w;
   __device__ __forceinline__ void load(const uint16_t* __restrict__ p) {
     w = __ldg(reinterpret_cast<const uint4*>(p));
@@ -333,7 +326,7 @@ struct RunBits<uint16_t, true> {
 };
 
 template <>
-struct RunBits<uint8_t, true> {
+struct RunBits<uint8_t> {
   uint2 w;
   __device__ __forceinline__ void load(const uint8_t* __restrict__ p) {
     w = __ldg(reinterpret_cast<const uint2*>(p));
@@ -345,30 +338,27 @@ struct RunBits<uint8_t, true> {
 
 // Store kRun samples from p, as RunBits loads them; a sample keeps its low
 // bits, as the conversion to T does.
-template <typename T, bool kVec>
+template <typename T>
 __device__ __forceinline__ void store_run(T* p, const int (&v)[kRun]) {
-  if constexpr (kVec && sizeof(T) == 2) {
+  if constexpr (sizeof(T) == 2) {
     uint32_t u[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k)
       u[k] = (uint32_t(v[2 * k]) & 0xFFFFu) | (uint32_t(v[2 * k + 1]) << 16);
     *reinterpret_cast<uint4*>(p) = make_uint4(u[0], u[1], u[2], u[3]);
-  } else if constexpr (kVec) {
+  } else {
     uint32_t u[2] = {0u, 0u};
 #pragma unroll
     for (int k = 0; k < kRun; ++k)
       u[k >> 2] |= (uint32_t(v[k]) & 0xFFu) << (8 * (k & 3));
     *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
-  } else {
-#pragma unroll
-    for (int k = 0; k < kRun; ++k) p[k] = T(v[k]);
   }
 }
 
 // The lattice instance is held to 64 registers, 4 thread blocks per SM; the
 // lane-word instance keeps its 8 columns' offsets in registers and takes
 // what it needs (2 blocks per SM).
-template <typename T, bool kLane, int kSkip, bool kVec>
+template <typename T, bool kLane, int kSkip>
 __global__ void __launch_bounds__(kThreads, kLane ? 1 : 4)
 grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
                    const uint32_t* __restrict__ words,
@@ -392,12 +382,12 @@ grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
     // left (the C model still runs its per-pixel loop, vfgs_hw.c:266-276).
     for (int q = threadIdx.x; q < runs; q += kThreads)
       for (int j = 0; j < g.bh; ++j) {
-        RunBits<T, kVec> bits;
+        RunBits<T> bits;
         bits.load(src + size_t(j) * Wp + q * kRun);
         int v[kRun];
 #pragma unroll
         for (int k = 0; k < kRun; ++k) v[k] = min(max(bits[k], imin), imax);
-        store_run<T, kVec>(dst + size_t(j) * Wp + q * kRun, v);
+        store_run<T>(dst + size_t(j) * Wp + q * kRun, v);
       }
     return;
   }
@@ -458,7 +448,7 @@ grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
 
     // Line j from its pixels `bits` and, at an end lane, the extra
     // column's pixel pe.
-    auto line = [&](auto blended, int j, const RunBits<T, kVec>& bits,
+    auto line = [&](auto blended, int j, const RunBits<T>& bits,
                     int pe) {
       constexpr bool kBlend = decltype(blended)::value;
       const int w1 = g.n_ov == 1 ? 20 : (j == 0 ? 12 : 24);
@@ -505,11 +495,11 @@ grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
           o[k] = min(max(pix[k] + ((sc * P[k] + bias) >> ss), imin), imax);
         }
       }
-      if (live) store_run<T, kVec>(dst + size_t(j) * Wp + x0, o);
+      if (live) store_run<T>(dst + size_t(j) * Wp + x0, o);
     };
     // Each line's pixels are loaded kAhead lines ahead, in flight while
     // the lines before are computed (ring[0] is line j's).
-    RunBits<T, kVec> ring[kAhead + 1];
+    RunBits<T> ring[kAhead + 1];
     int pe[kAhead + 1] = {};
 #pragma unroll
     for (int a = 0; a < kAhead; ++a) {
@@ -536,9 +526,9 @@ grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
 }
 
 // Launch K1's kernel with stage mask kSkip on one plane (arguments as
-// grain_plane_kernel's; `frames` x `rows` block rows): the vector instance
-// where `in` and `out` are both aligned to a run of samples, else the one
-// that moves a sample at a time.  Returns cudaGetLastError().
+// grain_plane_kernel's; `frames` x `rows` block rows).  `in` and `out` must
+// be aligned to a run of samples (kRun * sizeof(T) bytes).  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an unaligned plane.
 template <typename T, bool kLane, int kSkip>
 int launch_grain_plane(const T* in, T* out, const uint32_t* words,
                        const uint32_t* up0, const int8_t* p,
@@ -548,14 +538,9 @@ int launch_grain_plane(const T* in, T* out, const uint32_t* words,
   const dim3 grid(unsigned(frames) * unsigned(rows));
   const uintptr_t a =
       reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out);
-  if (a % (kRun * sizeof(T)) == 0)
-    grain_plane_kernel<T, kLane, kSkip, true><<<grid, kThreads, 0, st>>>(
-        in, out, words, up0, p, sl, pl, sc, rows, cols, g, zero_scale,
-        blend0);
-  else
-    grain_plane_kernel<T, kLane, kSkip, false><<<grid, kThreads, 0, st>>>(
-        in, out, words, up0, p, sl, pl, sc, rows, cols, g, zero_scale,
-        blend0);
+  if (a % (kRun * sizeof(T)) != 0) return int(cudaErrorInvalidValue);
+  grain_plane_kernel<T, kLane, kSkip><<<grid, kThreads, 0, st>>>(
+      in, out, words, up0, p, sl, pl, sc, rows, cols, g, zero_scale, blend0);
   return int(cudaGetLastError());
 }
 

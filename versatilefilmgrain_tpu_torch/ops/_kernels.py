@@ -106,9 +106,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp]                     # stream
         lib.vfg_grain_plane_info.restype = i
         lib.vfg_grain_plane_info.argtypes = [
-            i, i, i,                # elem_bytes, lane, vec
+            i, i,                   # elem_bytes, lane
             ctypes.POINTER(i), ctypes.POINTER(i),  # registers, static smem
-            ctypes.POINTER(i)]      # blocks per SM
+            ctypes.POINTER(i), ctypes.POINTER(i)]  # local bytes, blocks/SM
     elif name == "grain_tiled":
         lib.vfg_grain_tiled.restype = i
         lib.vfg_grain_tiled.argtypes = [

@@ -310,6 +310,10 @@ def grain_plane_cuda(pix, words, tables: dict, *, c: int, csubx: int,
     pattern = tables["pattern"][1 if c else 0]
     if pattern.data_ptr() % 16:
         raise ValueError("pattern bank must be 16-byte aligned")
+    if pix.data_ptr() % (8 * pix.element_size()):
+        # a thread moves 8 samples as one vector: take a plane that starts
+        # off that grid (a view into a larger buffer) into a fresh one
+        pix = pix.clone()
     lib = _kernels.load("grain_natural")
     out = torch.empty_like(pix)
     rc = lib.vfg_grain_plane(
@@ -332,21 +336,21 @@ grain_plane_cuda.launches = 0
 grain_plane_cuda.boot_launches = 0
 
 
-def grain_plane_info(elem_bytes: int, lane: bool, vec: bool) -> dict:
-    """Registers per thread, static shared memory bytes per thread block
-    and thread blocks per SM (the CUDA occupancy calculator) of
-    csrc/grain_natural.cu's instance for ``elem_bytes`` (1 or 2), lattice
-    or lane words, and vector (aligned planes) or sample-at-a-time access.
-    Builds the kernel; needs a card."""
-    regs, smem, blocks = (ctypes.c_int() for _ in range(3))
+def grain_plane_info(elem_bytes: int, lane: bool) -> dict:
+    """Registers per thread, static shared memory bytes per thread block,
+    local memory bytes per thread (stack and spills) and thread blocks per
+    SM (the CUDA occupancy calculator) of csrc/grain_natural.cu's instance
+    for ``elem_bytes`` (1 or 2) and lattice or lane words.  Builds the
+    kernel; needs a card."""
+    regs, smem, local, blocks = (ctypes.c_int() for _ in range(4))
     rc = _kernels.load("grain_natural").vfg_grain_plane_info(
-        elem_bytes, int(lane), int(vec), ctypes.byref(regs),
-        ctypes.byref(smem), ctypes.byref(blocks))
+        elem_bytes, int(lane), ctypes.byref(regs), ctypes.byref(smem),
+        ctypes.byref(local), ctypes.byref(blocks))
     if rc != 0:
         raise RuntimeError(f"grain_natural kernel info failed: CUDA error "
                            f"{rc}")
     return dict(registers=regs.value, static_smem=smem.value,
-                blocks_per_sm=blocks.value)
+                local_bytes=local.value, blocks_per_sm=blocks.value)
 
 
 def _active(tables: dict):

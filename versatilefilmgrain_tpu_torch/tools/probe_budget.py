@@ -104,6 +104,8 @@ def grain_plane_budget_cuda(pix, words, tables: dict, *, c: int, csubx: int,
         if tables[k].device != dev or not tables[k].is_contiguous():
             raise ValueError(f"tables[{k!r}] must be contiguous on {dev}")
     pattern = tables["pattern"][1 if c else 0]
+    if pix.data_ptr() % 16:
+        raise ValueError("plane must be 16-byte aligned")
     lib = _kernels.load("probe_budget")
     out = torch.empty_like(pix)
     rc = lib.vfg_probe_budget(
