@@ -8,8 +8,9 @@ Phases, one result line each:
   1. device   -- the card's name and power limit;
   2. build    -- nvcc builds csrc/grain_natural.cu, csrc/grain_tiled.cu,
                  csrc/expand_words.cu, csrc/probe_budget.cu,
-                 csrc/probe_pipe.cu, csrc/probe_dot.cu and
-                 csrc/probe_relayout.cu, all at once;
+                 csrc/probe_pipe.cu, csrc/probe_dot.cu,
+                 csrc/probe_dotconst.cu and csrc/probe_relayout.cu, all at
+                 once;
                  ptxas' register, shared memory and spill report;
   3. kernel   -- the kernel against its plain torch version on the card at
                  3840x2160 10-bit 4:2:0, default config, one batch of 8
@@ -66,9 +67,15 @@ Phases, one result line each:
                  bf16 == int8 == gather); the plain version and one library
                  call per mode timed (torch._int_mm, bf16 and TF32
                  torch.matmul, pat[:, t]);
- 18. dot2     -- the same for K7's modes (none, int8, build, dotconst);
+ 18. dot2     -- the same for K7's modes (none, int8, build, dotconst; the
+                 dense product is csrc/probe_dotconst.cu, a persistent
+                 wgmma kernel), the build instance's SASS counts, and the
+                 dotconst instance's registers, shared memory, local memory
+                 and thread blocks per SM;
  19. dotscale -- the same for K8's dense int8 product at M = 16, 64, 128,
-                 144, 160, 256;
+                 144, 160, 256, each timed beside torch._int_mm on the same
+                 product; every instance's occupancy and the SASS counts of
+                 the M=144 instance (IGMMA among them);
  20. relayout -- every instance of csrc/probe_relayout.cu (K9's passthrough
                  and relayout at 1, 5 and 15 block rows per thread block,
                  K10's two forms on the 5-D view) == its plain version ==
@@ -331,7 +338,8 @@ def main() -> int:
     # 2. build: one nvcc per source, started together
     t0 = time.perf_counter()
     sources = ("grain_natural", "grain_tiled", "expand_words",
-               "probe_budget", "probe_pipe", "probe_dot", "probe_relayout")
+               "probe_budget", "probe_pipe", "probe_dot", "probe_dotconst",
+               "probe_relayout")
     _kernels.build(sources)
     for name in sources:
         _kernels.load(name)
@@ -939,8 +947,17 @@ def main() -> int:
           f"every mode exact; plain build {plain7['build']:.3f} ms, "
           f"dotconst {plain7['dotconst']:.3f} ms; library torch._int_mm "
           f"(dotconst product) {lib7:.4f} ms; card {card}")
+    ms7 = k7["dotconst"]["ms"]
+    phase("dot2", f"dotconst kernel {ms7:.4f} ms against torch._int_mm "
+          f"{lib7:.4f} ms on the same product: faster {ms7 < lib7}; "
+          f"{k7['dotconst']['bound_ms'] / ms7:.3f} of its bound")
     phase("dot2", "build instance, what the compiler kept: "
           + sass_counts(_kernels, "probe_dot", "dot_kernelILi5E"))
+    phase("dot2", "dotconst instance (M=144, rows 18p + i), registers / "
+          "dynamic shared memory bytes / local memory bytes per thread / "
+          "thread blocks per SM: {registers} / {smem} / {local_bytes} / "
+          "{blocks_per_sm}".format(**_dot.dotconst_info(_dot.M,
+                                                        _dot.ROWS_K6)))
     del y, t, pat, constoh
 
     # 19. the dense product against M (K8)
@@ -979,6 +996,24 @@ def main() -> int:
           f"every M exact; plain / torch._int_mm (product only) ms: "
           + ", ".join(f"M={m} {plain8[m]:.3f} / {lib8[m]:.4f}"
                       for m in pats) + f"; card {card}")
+    ms8 = {m: k8[f"M={m}"]["ms"] for m in pats}
+    from64 = [ms8[m] for m in _dot.SCALE_MS[1:]]
+    phase("dotscale", "kernel / torch._int_mm ms, fraction of the bound: "
+          + ", ".join(f"M={m} {ms8[m]:.4f} / {lib8[m]:.4f}, "
+                      f"{k8[f'M={m}']['bound_ms'] / ms8[m]:.3f}"
+                      for m in pats)
+          + f"; faster than torch._int_mm at every M: "
+          f"{all(ms8[m] < lib8[m] for m in pats)}; time grows with M from "
+          f"M=64: {all(a < b for a, b in zip(from64, from64[1:]))}")
+    phase("dotscale", "instances, registers / dynamic shared memory bytes / "
+          "local memory bytes per thread / thread blocks per SM: " + ", ".join(
+              "M={} {registers} / {smem} / {local_bytes} / "
+              "{blocks_per_sm}".format(m, **_dot.dotconst_info(
+                  m, _dot.scale_rows(m))) for m in pats))
+    phase("dotscale", "M=144 instance: " + sass_counts(
+        _kernels, "probe_dotconst", "dotconst_kernelILi144ELi16E",
+        keys=("IGMMA", "IMMA", "LDS", "STS", "SHFL", "BAR", "LDL", "STL",
+              "STG", "LDG")))
     del y, oh, pats
 
     # 20. the relayout probes (K9, K10)
@@ -1128,10 +1163,10 @@ def main() -> int:
         probe_row("probe_dot", "probe_dot.cu", "tools/probe_dot.py:38",
                   "int8", k6, k6_launches, k6_err, plain6["onehot"],
                   lib6["int8"]),
-        probe_row("probe_dot2", "probe_dot.cu", "tools/probe_dot2.py:38",
-                  "dotconst", k7, k7_launches, k7_err, plain7["dotconst"],
-                  lib7),
-        probe_row("probe_dotscale", "probe_dot.cu",
+        probe_row("probe_dot2", "probe_dotconst.cu",
+                  "tools/probe_dot2.py:38", "dotconst", k7, k7_launches,
+                  k7_err, plain7["dotconst"], lib7),
+        probe_row("probe_dotscale", "probe_dotconst.cu",
                   "tools/probe_dotscale.py:22", "M=256", k8, k8_launches,
                   k8_err, plain8[256], lib8[256]),
         probe_row("probe_relayout", "probe_relayout.cu",

@@ -1,8 +1,8 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
 K1 (lattice and lane-word input, shard boot), K2, K3, the two probes of K1
 (K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu), the one-hot dot probes
-(K6-K8, csrc/probe_dot.cu) and the relayout probes (K9, K10,
-csrc/probe_relayout.cu).
+(K6-K8, csrc/probe_dot.cu and, for the dense product, csrc/probe_dotconst.cu)
+and the relayout probes (K9, K10, csrc/probe_relayout.cu).
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one (the kernel has no CPU mode; the CPU tests hold the plain
@@ -387,14 +387,19 @@ def test_pipe_matches_k1(kind, cuda_device):
 @pytest.mark.parametrize("mode", ["none", "int8", "bf16", "f32", "gather",
                                   "build", "dotconst"])
 def test_dot_probe_matches_plain(mode, width, cuda_device):
-    """Every mode of the dot probe kernel (csrc/probe_dot.cu, K6 and K7) ==
-    its plain version, one and two block rows per thread block, at a width
-    that is a multiple of 128 and one that is not."""
+    """Every mode of the dot probe kernels (csrc/probe_dot.cu, K6 and K7;
+    dotconst csrc/probe_dotconst.cu) == its plain version, at a width that is
+    a multiple of 128 and one that is not; one and two block rows per thread
+    block, except dotconst, whose persistent grid schedules the strips and
+    refuses strips 2."""
     from versatilefilmgrain_tpu_torch.tools import _dot
     y, t, pat, constoh = _dot.dot2_inputs(13, 3, 48, width,
                                           device=cuda_device)
     want = _dot.plain(mode, y, t, pat, constoh)
-    for strips in (1, 2):
+    if mode == "dotconst":
+        with pytest.raises(ValueError, match="strips 2: dotconst"):
+            _dot.make_step(mode, t, pat, constoh, strips=2)(y)
+    for strips in (1,) if mode == "dotconst" else (1, 2):
         before = _dot.dot_probe_cuda.launches
         got = _dot.make_step(mode, t, pat, constoh, strips=strips)(y)[0]
         torch.cuda.synchronize()
@@ -413,6 +418,78 @@ def test_dotscale_probe_matches_plain(mm, cuda_device):
     want = _dot.dotconst_plain(y, pats[mm], oh, **kw)
     torch.cuda.synchronize()
     assert torch.equal(got, want), f"M={mm}"
+
+
+DOTCONST_CASES = [(m, (16, m // 16)) for m in (16, 64, 128, 144, 160, 256)] \
+    + [(144, (18, 8))]
+
+
+def _dotconst_inputs(m, rows, frames, height, width, seed, dev):
+    """(y, pat, oh, clip_hi) for one dense instance: K8's draws, or K7's
+    at its (18, 8) rows."""
+    from versatilefilmgrain_tpu_torch.tools import _dot
+    if rows == _dot.ROWS_K6:
+        y, _, pat, oh = _dot.dot2_inputs(seed, frames, height, width,
+                                         device=dev)
+        return y, pat, oh, _dot.CLIP_HI
+    y, oh, pats = _dot.dotscale_inputs(seed, frames, height, width, ms=(m,),
+                                       device=dev)
+    return y, pats[m], oh, _dot.CLIP_HI_SCALE
+
+
+@pytest.mark.parametrize("width", [64, 160, 200, 256, 296])
+@pytest.mark.parametrize("m,rows", DOTCONST_CASES)
+def test_dotconst_matches_plain(m, rows, width, cuda_device):
+    """The dense kernel (csrc/probe_dotconst.cu) at every instance == its
+    plain version, at widths of whole and partial 64-column tiles, on a
+    plane of 4 frames x 50 block rows; y at 0 and at the clip limit on
+    alternate lines, so both clip ends are hit.  At width 296 (5 tiles, the
+    last one partial) thread blocks' work ranges cross a column-tile
+    boundary on a 132-SM card, so a warpgroup reloads its A fragments
+    mid-range; with 2-4 tiles the ranges of 132 blocks end on the
+    boundaries."""
+    from versatilefilmgrain_tpu_torch.tools import _dot
+    frames, R = 4, 50
+    y, pat, oh, hi = _dotconst_inputs(m, rows, frames, 16 * R, width, 27,
+                                      cuda_device)
+    y[:, 0::2] = 0
+    y[:, 1::2] = hi
+    info = _dot.dotconst_info(m, rows)
+    ctas = min(-(-width // _dot.DOTCONST_COLS) * frames * R,
+               torch.cuda.get_device_properties(0).multi_processor_count
+               * info["blocks_per_sm"])
+    ranges = _dot.dotconst_schedule(frames, R, width, ctas)
+    crosses = any(_dot.dotconst_item(lo, frames, R)[0]
+                  != _dot.dotconst_item(end - 1, frames, R)[0]
+                  for lo, end in ranges if end > lo)
+    assert crosses or width != 296
+    want = _dot.dotconst_plain(y, pat, oh, rows=rows, clip_hi=hi)
+    got = _dot.make_step("dotconst", None, pat, oh, clip_hi=hi,
+                         rows=rows)(y)[0]
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), f"M={m} rows {rows} W={width}"
+    assert bool((want == 0).any()) and bool((want == hi).any())
+    assert not bool(((want == 0) | (want == hi)).all())
+
+
+@pytest.mark.parametrize("m,rows", DOTCONST_CASES)
+def test_dotconst_launches_repeat_exactly(m, rows, cuda_device):
+    """Two launches of the dense kernel give identical bytes (its fold has
+    no atomics), each adds one to the launch counter, and an instance
+    spills nothing."""
+    from versatilefilmgrain_tpu_torch.tools import _dot
+    y, pat, oh, hi = _dotconst_inputs(m, rows, 3, 48, 200, 33, cuda_device)
+    step = _dot.make_step("dotconst", None, pat, oh, clip_hi=hi, rows=rows)
+    before = _dot.dot_probe_cuda.launches
+    first = step(y)[0]
+    assert _dot.dot_probe_cuda.launches == before + 1
+    second = step(y)[0]
+    torch.cuda.synchronize()
+    assert _dot.dot_probe_cuda.launches == before + 2
+    assert torch.equal(first, second)
+    assert torch.equal(first, _dot.dotconst_plain(y, pat, oh, rows=rows,
+                                                  clip_hi=hi))
+    assert _dot.dotconst_info(m, rows)["local_bytes"] == 0
 
 
 def test_dot_probe_out_of_range_indices(cuda_device):

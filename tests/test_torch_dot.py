@@ -7,9 +7,11 @@ own ``kernel`` runs in the BlockSpecs of their ``main`` with
 ``interpret=True``, at 2 frames of 32 lines and widths 256 and 160 (not a
 multiple of 128).  On CPU tensors the port's probe steps run their plain
 versions, which must equal the JAX kernels exactly (tolerance 0: every
-value is an integer).  The kernel itself (csrc/probe_dot.cu) runs only on
-the card: tests/test_torch_cuda.py and chip_smoke.py hold it against the
-same plain versions.
+value is an integer).  The kernels themselves (csrc/probe_dot.cu, and
+csrc/probe_dotconst.cu for the dense product) run only on the card:
+tests/test_torch_cuda.py and chip_smoke.py hold them against the same plain
+versions.  Here the dense kernel's wrapper checks and its work schedule are
+tested too.
 """
 
 import functools
@@ -258,3 +260,70 @@ def test_plain_products_restore_tf32():
     _dot.onehot_plain(y, t, pat)
     _dot.dotconst_plain(y, pat, constoh)
     assert torch.backends.cuda.matmul.allow_tf32 == before
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_dotconst_schedule_covers_every_item(seed):
+    """The dense kernel's work ranges (csrc/probe_dotconst.cu, mirrored by
+    ``_dot.dotconst_schedule``) cover every (column tile, strip) exactly
+    once, in order, for random frames, block rows, widths and grids."""
+    rng = np.random.default_rng(seed)
+    frames, rows = int(rng.integers(1, 9)), int(rng.integers(1, 140))
+    width = 8 * int(rng.integers(1, 500))
+    ctas = int(rng.integers(1, 300))
+    ranges = _dot.dotconst_schedule(frames, rows, width, ctas)
+    tiles = -(-width // _dot.DOTCONST_COLS)
+    assert len(ranges) == ctas and ranges[0][0] == 0
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    seen = [_dot.dotconst_item(i, frames, rows)
+            for lo, hi in ranges for i in range(lo, hi)]
+    assert len(seen) == len(set(seen)) == tiles * frames * rows
+    assert set(seen) == {(c, s) for c in range(tiles)
+                         for s in range(frames * rows)}
+    assert seen == sorted(seen)   # column tile first
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data pointer is off the 16-byte
+    grid."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("case,match", [
+    ("strips 2", "strips 2: dotconst"), ("width 164", "multiple of 8"),
+    ("pat misaligned", "pat must be 16-byte aligned"),
+    ("oh_t misaligned", "oh_t must be 16-byte aligned"),
+    ("y misaligned", "y must be 16-byte aligned"),
+    ("M=32", "no dotconst instance"),
+    ("K7 rows at M=160", "no dotconst instance"),
+    ("cpu", "needs CUDA tensors")])
+def test_dotconst_wrapper_checks(case, match):
+    """The dense kernel's wrapper: strips 1 only, widths of 8, 16-byte
+    aligned operands, its instance list, and CUDA tensors; nothing is
+    launched."""
+    width = 164 if case == "width 164" else 160
+    y, oh, pats = _dot.dotscale_inputs(1, FR, HT, width, ms=(16, 160))
+    pat, rows = pats[16], _dot.scale_rows(16)
+    oh_t = oh.t().contiguous()
+    kw = {}
+    if case == "strips 2":
+        kw = dict(strips=2)
+    elif case == "pat misaligned":
+        pat = _misaligned(pat)
+    elif case == "oh_t misaligned":
+        oh_t = _misaligned(oh_t)
+    elif case == "y misaligned":
+        y = _misaligned(y)
+    elif case == "M=32":
+        pat, rows = torch.cat([pat, pat]), (16, 2)
+    elif case == "K7 rows at M=160":
+        pat, rows = pats[160], _dot.ROWS_K6
+    launches = _dot.dot_probe_cuda.launches
+    with pytest.raises(ValueError, match=match):
+        _dot.dot_probe_cuda(y, None, pat, oh_t, mode="dotconst",
+                            clip_hi=_dot.CLIP_HI_SCALE, rows=rows, **kw)
+    assert _dot.dot_probe_cuda.launches == launches

@@ -1,19 +1,17 @@
 // The one-hot dot probes of the grain kernel's window fetch, written for
-// Hopper (sm_90a): one source, one template instance per (mode, M, slices).
+// Hopper (sm_90a): one source, one template instance per mode.
 //
-// Replaces three TPU kernels of tools/ (each a `kernel` run by its `main`):
+// Replaces two TPU kernels of tools/ (each a `kernel` run by its `main`):
 //   K6 tools/probe_dot.py:38       modes none, int8, bf16, f32
-//   K7 tools/probe_dot2.py:38      modes none, int8, build, dotconst
-//   K8 tools/probe_dotscale.py:22  dotconst at M = 16, 64, 128, 144, 160, 256
+//   K7 tools/probe_dot2.py:38      modes none, int8, build
+// (K7's dotconst mode and K8, the dense product, are csrc/probe_dotconst.cu.)
 // For every (frame f, 16-line block row r) of a (F, 16R, W) uint16 plane y
-// they compute, with `hi` = 4092 (K6, K7) or 4095 (K8),
+// they compute, with `hi` = 4092,
 //   out[f, 16r + i, w] = clip(y[f, 16r + i, w] + s[i, w], 0, hi),  i < 16,
-//   s[i, w] = sum over slices p of cand[p * stride + i, w],
-// where `stride`, `slices` = 18, 8 (K6, K7) or 16, M / 16 (K8) and cand is
+//   s[i, w] = sum over slices p < 8 of cand[18 p + i, w],
+// where cand is
 //   int8/bf16/f32 (and gather): pat(144 x 768 int8) @ onehot(768 x W),
 //                 onehot[k, w] = (k == t[f, r, w]), so cand[m, w] = pat[m, t];
-//   dotconst:     pat(M x 768 int8) @ oh(768 x W 0/1 int8), the same for
-//                 every (f, r), recomputed per (f, r) as the TPU does;
 //   build:        no product: s8[j, w] = sum_{q<8} onehot[96 q + j, w],
 //                 s[i] = sum_{p<8} s8[(i + 2p) mod 16] (the TPU build mode's
 //                 nine stacked copies of s8 read at rows 18p + i);
@@ -24,30 +22,26 @@
 // What bounds it on this card, per 8-frame 3840x2160 step (computed from the
 // H100 SXM data sheet, not measured): y in and out is 265.4 MB and t 16.6 MB,
 // 0.084 ms at 3.35 TB/s (none 0.079 ms); the 144-row product is 917.3 G int8
-// operations, 0.464 ms at 1,979 TOPS, so int8 and dotconst are bound by
-// operations, bf16 at 989 TFLOP/s by 0.927 ms, f32 (TF32) at 495 by 1.853 ms;
-// K8 scales as 6.37 G operations x M.  gather, build and none are bound by
-// bytes.
+// operations, 0.464 ms at 1,979 TOPS, so int8 is bound by operations,
+// bf16 at 989 TFLOP/s by 0.927 ms, f32 (TF32) at 495 by 1.853 ms.  gather,
+// build and none are bound by bytes.
 //
 // Design.  A thread block of 8 warps owns 128 columns of `strips` block rows
 // of one frame (grid: column tiles x row groups x frames); each warp owns 16
 // columns, two n-tiles of 8.  The product runs on the tensor cores with
 // mma.sync (m16n8k32 s8 -> s32, m16n8k16 bf16 -> f32, m16n8k8 tf32 -> f32),
-// every K step for all M/16 m-tiles, as the TPU's dot does; skipping the
+// every K step for all 9 m-tiles, as the TPU's dot does; skipping the
 // steps where the one-hot is zero is the gather's job.  A (the pattern) comes
-// from shared memory: the int8 bank (144 x 768, 110,592 bytes; 196,608 at
-// M = 256) is staged whole in dynamic shared memory once per thread block;
+// from shared memory: the int8 bank (144 x 768, 110,592 bytes) is staged
+// whole in dynamic shared memory once per thread block;
 // the bf16 and f32 banks (221 KB, 442 KB) do not fit, so 128 (bf16) or 64
 // (f32) columns of K are converted from int8 and staged at a time.  Rows are
 // padded by 16 bytes so that a warp's A-fragment loads hit 32 banks.  B (the
 // one-hot) is built in registers from the thread's t value, with no memory
 // access: a thread's B column is one w, and each register holds 4 (int8),
 // 2 (bf16) or 1 (tf32) rows of it, so the fragment is one compare and shift
-// per register.  dotconst reads B from a (W, 768) transposed copy of the
-// constant matrix in device memory (2.9 MB, resident in L2), two 32-bit
-// loads per n-tile and K step.  TF32 is exact here: every input is an
-// integer of at most 8 bits, and every sum is below 2^24 (it is one entry of
-// pat for the one-hot; at most 128 x 768 for dotconst, which runs in int8).
+// per register.  TF32 is exact here: every input is an integer of at most 8
+// bits, and every sum is one entry of pat.
 // The slices start every 18 rows and cross m-tile boundaries, so each
 // accumulator is added (shared-memory atomics) into a 16 x 128 int32 tile of
 // s, then the block writes clip(y + s) with neighbouring threads on
@@ -84,10 +78,10 @@ constexpr int kRowInt8 = kK + 16;       // padded bank row, bytes
 constexpr int kRowChunk = 256 + 16;     // padded bf16/f32 chunk row, bytes
 
 enum Mode { kNone = 0, kInt8 = 1, kBf16 = 2, kF32 = 3, kGather = 4,
-            kBuild = 5, kDotconst = 6 };
+            kBuild = 5 };
 
 __host__ __device__ constexpr bool whole_bank(int mode) {
-  return mode == kInt8 || mode == kGather || mode == kDotconst;
+  return mode == kInt8 || mode == kGather;
 }
 
 __host__ __device__ constexpr int smem_bytes(int mode, int m) {
@@ -198,8 +192,8 @@ template <int kMode, int kM, int kStride, int kSlices>
 __global__ void __launch_bounds__(kThreads)
 dot_kernel(const unsigned short* __restrict__ y,
            unsigned short* __restrict__ out, const int* __restrict__ t,
-           const int8_t* __restrict__ pat, const int8_t* __restrict__ oh_t,
-           int rows, int width, int strips, int hi) {
+           const int8_t* __restrict__ pat, int rows, int width, int strips,
+           int hi) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* s = reinterpret_cast<int*>(smem);
   unsigned char* bank = smem + kSBytes;
@@ -270,40 +264,22 @@ dot_kernel(const unsigned short* __restrict__ y,
 #pragma unroll
           for (int j = 0; j < 4; ++j) acc[mt][nt][j] = Acc(0);
       int tv[2];
-      const int8_t* ohc[2];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const int col = col0 + warp * 16 + nt * 8 + g;
-        tv[nt] = -1;
-        ohc[nt] = nullptr;
-        if (col < width) {
-          if constexpr (kMode == kDotconst)
-            ohc[nt] = oh_t + size_t(col) * kK + 4 * tig;
-          else
-            tv[nt] = __ldg(t + strip * width + col);
-        }
+        tv[nt] = col < width ? __ldg(t + strip * width + col) : -1;
       }
       for (int i = threadIdx.x; i < 16 * kCols; i += kThreads) s[i] = 0;
 
-      if constexpr (kMode == kInt8 || kMode == kDotconst) {
+      if constexpr (kMode == kInt8) {
         __syncthreads();
         const unsigned char* arow = bank + g * kRowInt8 + 4 * tig;
 #pragma unroll 1
         for (int ks = 0; ks < kK / 32; ++ks) {
           unsigned b[2][2];
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            if constexpr (kMode == kInt8) {
-              onehot_s8(tv[nt], 32 * ks, tig, b[nt][0], b[nt][1]);
-            } else if (ohc[nt] != nullptr) {
-              const unsigned* p =
-                  reinterpret_cast<const unsigned*>(ohc[nt] + 32 * ks);
-              b[nt][0] = __ldg(p);
-              b[nt][1] = __ldg(p + 4);
-            } else {
-              b[nt][0] = b[nt][1] = 0u;
-            }
-          }
+          for (int nt = 0; nt < 2; ++nt)
+            onehot_s8(tv[nt], 32 * ks, tig, b[nt][0], b[nt][1]);
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
             const unsigned char* ap = arow + mt * 16 * kRowInt8 + 32 * ks;
@@ -390,8 +366,8 @@ dot_kernel(const unsigned short* __restrict__ y,
 
 template <int kMode, int kM, int kStride, int kSlices>
 int launch(const void* y, void* out, const void* t, const void* pat,
-           const void* oh_t, int frames, int rows, int width, int strips,
-           int hi, cudaStream_t st) {
+           int frames, int rows, int width, int strips, int hi,
+           cudaStream_t st) {
   auto kern = dot_kernel<kMode, kM, kStride, kSlices>;
   constexpr int smem = smem_bytes(kMode, kM);
   static bool configured = false;
@@ -405,8 +381,8 @@ int launch(const void* y, void* out, const void* t, const void* pat,
                   frames);
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<const unsigned short*>(y), static_cast<unsigned short*>(out),
-      static_cast<const int*>(t), static_cast<const int8_t*>(pat),
-      static_cast<const int8_t*>(oh_t), rows, width, strips, hi);
+      static_cast<const int*>(t), static_cast<const int8_t*>(pat), rows,
+      width, strips, hi);
   return int(cudaGetLastError());
 }
 
@@ -414,56 +390,36 @@ int launch(const void* y, void* out, const void* t, const void* pat,
 
 // One probe step.  `y`, `out`: (frames, 16 rows, width) uint16; `t`:
 // (frames, rows, 1, width) int32 (int8, bf16, f32, gather, build; an index
-// outside [0, 768) matches no one-hot row); `pat`: (m, 768) int8, 16-byte
-// aligned (int8, bf16, f32, gather: m = 144; dotconst: m = 144 with
-// stride 18 and 8 slices, or m in 16, 64,
-// 128, 144, 160, 256 with stride 16 and m / 16 slices); `oh_t`: (width, 768)
-// int8, 4-byte aligned, the constant matrix transposed (dotconst).  Modes:
-// 0 none, 1 int8, 2 bf16, 3 f32, 4 gather, 5 build, 6 dotconst.  A thread
-// block covers 128 columns of `strips` block rows.  All pointers are device
+// outside [0, 768) matches no one-hot row); `pat`: (144, 768) int8, 16-byte
+// aligned (int8, bf16, f32, gather); (m, stride, slices) = (144, 18, 8).
+// Modes: 0 none, 1 int8, 2 bf16, 3 f32, 4 gather, 5 build.  A thread block
+// covers 128 columns of `strips` block rows.  All pointers are device
 // pointers.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int vfg_probe_dot(int mode, int m, int stride, int slices, int hi,
                              const void* y, void* out, const void* t,
-                             const void* pat, const void* oh_t, int frames,
-                             int rows, int width, int strips, void* stream) {
+                             const void* pat, int frames, int rows, int width,
+                             int strips, void* stream) {
   if (y == nullptr || out == nullptr || frames < 1 || frames > 65535 ||
       rows < 1 || width < 1 || strips < 1 || hi < 0 || hi > 65535)
     return int(cudaErrorInvalidValue);
   const bool needs_t = mode >= kInt8 && mode <= kBuild;
   const bool needs_pat = mode != kNone && mode != kBuild;
   if ((needs_t && t == nullptr) || (needs_pat && pat == nullptr) ||
-      (needs_pat && reinterpret_cast<uintptr_t>(pat) % 16) ||
-      (mode == kDotconst &&
-       (oh_t == nullptr || reinterpret_cast<uintptr_t>(oh_t) % 4)))
+      (needs_pat && reinterpret_cast<uintptr_t>(pat) % 16) || m != 144 ||
+      stride != 18 || slices != 8)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool k6 = m == 144 && stride == 18 && slices == 8;
-#define VFG_DOT(MODE, M, STRIDE, SLICES)                                    \
-  launch<MODE, M, STRIDE, SLICES>(y, out, t, pat, oh_t, frames, rows, width, \
-                                  strips, hi, st)
-  if (mode != kDotconst) {
-    if (!k6) return int(cudaErrorInvalidValue);
-    switch (mode) {
-      case kNone: return VFG_DOT(kNone, 144, 18, 8);
-      case kInt8: return VFG_DOT(kInt8, 144, 18, 8);
-      case kBf16: return VFG_DOT(kBf16, 144, 18, 8);
-      case kF32: return VFG_DOT(kF32, 144, 18, 8);
-      case kGather: return VFG_DOT(kGather, 144, 18, 8);
-      case kBuild: return VFG_DOT(kBuild, 144, 18, 8);
-      default: return int(cudaErrorInvalidValue);
-    }
-  }
-  if (k6) return VFG_DOT(kDotconst, 144, 18, 8);
-  if (stride != 16 || slices * 16 != m) return int(cudaErrorInvalidValue);
-  switch (m) {
-    case 16: return VFG_DOT(kDotconst, 16, 16, 1);
-    case 64: return VFG_DOT(kDotconst, 64, 16, 4);
-    case 128: return VFG_DOT(kDotconst, 128, 16, 8);
-    case 144: return VFG_DOT(kDotconst, 144, 16, 9);
-    case 160: return VFG_DOT(kDotconst, 160, 16, 10);
-    case 256: return VFG_DOT(kDotconst, 256, 16, 16);
+#define VFG_DOT(MODE)                                                     \
+  launch<MODE, 144, 18, 8>(y, out, t, pat, frames, rows, width, strips, hi, \
+                           st)
+  switch (mode) {
+    case kNone: return VFG_DOT(kNone);
+    case kInt8: return VFG_DOT(kInt8);
+    case kBf16: return VFG_DOT(kBf16);
+    case kF32: return VFG_DOT(kF32);
+    case kGather: return VFG_DOT(kGather);
+    case kBuild: return VFG_DOT(kBuild);
     default: return int(cudaErrorInvalidValue);
   }
 #undef VFG_DOT
-  return int(cudaErrorInvalidValue);
 }

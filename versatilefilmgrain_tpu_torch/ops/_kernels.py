@@ -150,9 +150,21 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.vfg_probe_dot.restype = i
         lib.vfg_probe_dot.argtypes = [
             i, i, i, i, i,          # mode, m, stride, slices, hi
-            vp, vp, vp, vp, vp,     # y, out, t, pat, oh_t
+            vp, vp, vp, vp,         # y, out, t, pat
             i, i, i, i,             # frames, rows, width, strips
             vp]                     # stream
+    elif name == "probe_dotconst":
+        lib.vfg_probe_dotconst.restype = i
+        lib.vfg_probe_dotconst.argtypes = [
+            i, i, i, i,             # m, stride, slices, hi
+            vp, vp, vp, vp,         # y, out, pat, oh_t
+            i, i, i,                # frames, rows, width
+            vp]                     # stream
+        lib.vfg_probe_dotconst_info.restype = i
+        lib.vfg_probe_dotconst_info.argtypes = [
+            i, i, i,                # m, stride, slices
+            ctypes.POINTER(i), ctypes.POINTER(i),  # registers, smem bytes
+            ctypes.POINTER(i), ctypes.POINTER(i)]  # local bytes, blocks/SM
     elif name == "probe_relayout":
         lib.vfg_probe_relayout.restype = i
         lib.vfg_probe_relayout.argtypes = [

@@ -5,10 +5,11 @@ On the TPU the grain kernel fetched its pattern windows as a one-hot matrix
 product on the matrix unit, and these probes measured what that product
 costs.  For every (frame, 16-line block row) of a uint16 plane ``y`` they
 write ``clip(y + s, 0, hi)``, where ``s`` sums row slices of 16 of a
-candidate matrix (see csrc/probe_dot.cu for every mode).  Here are their
-shapes, their seeded inputs (drawn in the order of each JAX probe's
-``main``), the plain torch versions of every mode, and the wrapper of the
-kernel, csrc/probe_dot.cu.
+candidate matrix (see csrc/probe_dot.cu for every mode but dotconst, and
+csrc/probe_dotconst.cu for the dense product of dotconst and K8).  Here are
+their shapes, their seeded inputs (drawn in the order of each JAX probe's
+``main``), the plain torch versions of every mode, the wrapper of both
+kernels and the work schedule of the dense one.
 """
 
 from __future__ import annotations
@@ -181,10 +182,44 @@ def plain(mode, y, t=None, pat=None, oh=None, *, clip_hi=CLIP_HI,
     raise ValueError(f"unknown mode {mode!r}: expected one of {list(MODES)}")
 
 
-# -- the kernel ---------------------------------------------------------------
+# -- the kernels --------------------------------------------------------------
+
+DOTCONST_COLS = 64    # columns of W in one work item of the dense kernel
+
+
+def dotconst_schedule(frames: int, rows: int, width: int,
+                      ctas: int) -> list[tuple[int, int]]:
+    """The work ranges of csrc/probe_dotconst.cu, in the kernel's own
+    arithmetic: the items are (64-column tile, strip), numbered tile first
+    (``item = tile * frames * rows + strip``), and thread block ``b`` of
+    ``ctas`` takes items ``[total b // ctas, total (b + 1) // ctas)``."""
+    total = -(-width // DOTCONST_COLS) * frames * rows
+    return [(total * b // ctas, total * (b + 1) // ctas)
+            for b in range(ctas)]
+
+
+def dotconst_item(item: int, frames: int, rows: int) -> tuple[int, int]:
+    """(column tile, strip) of a work item of :func:`dotconst_schedule`."""
+    return divmod(item, frames * rows)
+
+
+def dotconst_info(m: int, rows) -> dict:
+    """Registers, dynamic shared memory bytes, local memory bytes (stack
+    and spills) a thread and thread blocks per SM of the csrc/probe_dotconst.cu
+    instance for (m, rows); builds the library on first use."""
+    _kernel_shape("dotconst", m, rows)
+    lib = _kernels.load("probe_dotconst")
+    vals = [ctypes.c_int(0) for _ in range(4)]
+    rc = lib.vfg_probe_dotconst_info(m, rows[0], rows[1],
+                                     *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        raise RuntimeError(f"probe_dotconst info failed: CUDA error {rc}")
+    return dict(zip(("registers", "smem", "local_bytes", "blocks_per_sm"),
+                    (v.value for v in vals)))
+
 
 def _kernel_shape(mode, m, rows):
-    """Raise unless csrc/probe_dot.cu has an instance for (mode, m, rows)."""
+    """Raise unless a kernel has an instance for (mode, m, rows)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}: expected one of "
                          f"{list(MODES)}")
@@ -199,14 +234,18 @@ def _kernel_shape(mode, m, rows):
 def dot_probe_cuda(y, t=None, pat=None, oh_t=None, *, mode: str,
                    clip_hi: int = CLIP_HI, rows=ROWS_K6,
                    strips: int = 1) -> torch.Tensor:
-    """Launch csrc/probe_dot.cu for ``mode`` on CUDA tensors; returns the
-    new plane.  ``y``: (F, 16R, W) uint16; ``t``: (F, R, 1, W) int32 (an
-    index outside [0, K) matches no one-hot row, as in the plain versions);
-    ``pat``: (m, K) int8; ``oh_t``: (W, K) int8, the constant matrix
-    transposed; each where :data:`READS` says ``mode`` reads it.  ``rows``:
-    slice stride and count; ``strips``: block rows per thread block (the
-    bank is staged once for them).  Adds one to ``dot_probe_cuda.launches``
-    per launch."""
+    """Launch the kernel of ``mode`` on CUDA tensors; returns the new
+    plane.  ``y``: (F, 16R, W) uint16; ``t``: (F, R, 1, W) int32 (an index
+    outside [0, K) matches no one-hot row, as in the plain versions);
+    ``pat``: (m, K) int8, 16-byte aligned; ``oh_t``: (W, K) int8, the
+    constant matrix transposed; each where :data:`READS` says ``mode`` reads
+    it.  ``rows``: slice stride and count.  Every mode but dotconst runs
+    csrc/probe_dot.cu, where ``strips`` is the block rows per thread block
+    (the bank is staged once for them).  dotconst runs csrc/probe_dotconst.cu
+    on a persistent grid that schedules the strips itself
+    (:func:`dotconst_schedule`): it takes ``strips`` = 1 only and refuses
+    any other, and needs W a multiple of 8 and ``y``, ``oh_t`` 16-byte
+    aligned.  Adds one to ``dot_probe_cuda.launches`` per launch."""
     dev = y.device
     if y.dim() != 3 or y.shape[1] % 16:
         raise ValueError(f"y must be (F, 16R, W), got {tuple(y.shape)}")
@@ -230,22 +269,35 @@ def dot_probe_cuda(y, t=None, pat=None, oh_t=None, *, mode: str,
     if strips < 1 or not 0 <= clip_hi <= 0xFFFF:
         raise ValueError(f"strips {strips} or clip_hi {clip_hi} out of "
                          f"range")
+    if mode == "dotconst":
+        if strips != 1:
+            raise ValueError(f"strips {strips}: dotconst schedules its "
+                             f"strips on a persistent grid; pass 1")
+        if Wy % 8:
+            raise ValueError(f"dotconst needs a width that is a multiple "
+                             f"of 8, got {Wy}")
+        for name, x in (("y", y), ("oh_t", oh_t)):
+            if x.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
     if dev.type != "cuda":
         raise ValueError(f"dot_probe_cuda needs CUDA tensors, got {dev}")
-    lib = _kernels.load("probe_dot")
     out = torch.empty_like(y)
-
-    def ptr(x):
-        return None if x is None else x.data_ptr()
-
-    rc = lib.vfg_probe_dot(MODES[mode], m, rows[0], rows[1], clip_hi,
-                           y.data_ptr(), out.data_ptr(), ptr(t), ptr(pat),
-                           ptr(oh_t), Fy, R, Wy, strips,
-                           ctypes.c_void_p(torch.cuda.current_stream(
-                               dev).cuda_stream))
+    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
+    if mode == "dotconst":
+        lib = _kernels.load("probe_dotconst")
+        rc = lib.vfg_probe_dotconst(m, rows[0], rows[1], clip_hi,
+                                    y.data_ptr(), out.data_ptr(),
+                                    pat.data_ptr(), oh_t.data_ptr(), Fy, R,
+                                    Wy, stream)
+    else:
+        lib = _kernels.load("probe_dot")
+        rc = lib.vfg_probe_dot(MODES[mode], m, rows[0], rows[1], clip_hi,
+                               y.data_ptr(), out.data_ptr(),
+                               None if t is None else t.data_ptr(),
+                               None if pat is None else pat.data_ptr(), Fy,
+                               R, Wy, strips, stream)
     if rc != 0:
-        raise RuntimeError(f"probe_dot kernel launch failed: CUDA error "
-                           f"{rc}")
+        raise RuntimeError(f"{mode} kernel launch failed: CUDA error {rc}")
     dot_probe_cuda.launches += 1
     return out
 
