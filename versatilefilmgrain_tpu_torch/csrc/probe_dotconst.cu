@@ -22,17 +22,24 @@
 //
 // Design.  One thread block per SM (the occupancy calculator's count) walks
 // a contiguous range of the (64-column tile, strip) work items, ordered
-// column tile first, so a range crosses at most a tile boundary or two.  The
-// block stages pat once, in wgmma's core-matrix order (8 rows x 16 bytes,
-// no swizzle; K-adjacent core matrices 128 bytes apart, 8-row groups 6,144),
-// and its two warpgroups take alternate strips: while one folds and stores,
-// the other's products run.  A warpgroup computes, per strip,
+// column tile first, so a range crosses few tile boundaries.  The block
+// stages pat once, in wgmma's core-matrix order (8 rows x 16 bytes, no
+// swizzle; K-adjacent core matrices 128 bytes apart, 8-row groups 6,144),
+// and its warpgroups (two; three at M <= 64, where registers allow) take
+// the range's items in turn.  A warpgroup computes, per strip,
 //   D (64 columns of W x N) = oh_t tile (64 x 768) . pat^T (768 x N)
 // with wgmma.m64nNk32.s32.s8.s8 in its RS form: A, the oh_t tile, lives in
 // registers (96 a thread, 24 K steps x 4), loaded from device memory once
 // per column tile; B is the staged pat.  N = M up to 160; M = 256 runs as
 // two N = 128 halves, so the accumulator stays at 64 registers.  Both
-// operands stay on chip: device memory sees y and out only.
+// operands stay on chip: device memory sees y and out only.  The
+// warpgroups issue their products strictly in item order (a ring of named
+// barriers), so the tensor cores finish one warpgroup's product before the
+// next one's and each fold and store overlaps another warpgroup's product;
+// left to the hardware, the products of all warpgroups run interleaved,
+// end together, and the tensor cores idle through the folds, K7's with its
+// shuffles the longest.  Each thread's 16-byte vector of y is loaded one
+// item ahead.
 //
 // The fold has no atomics.  The thread with warp w, lane 4g + tig holds D
 // rows 16w + g and 16w + g + 8 (two columns of W) and D columns 8j + 2tig +
@@ -42,9 +49,8 @@
 // shuffles of the per-rotation sums.  Rows outside every slice are dropped.
 // Each thread ends with 8 values of s (2 columns x 4 values of i), written
 // to a 16 x 64 int32 tile in shared memory (rows padded to 68 words: no bank
-// conflict), then each thread adds one 16-byte vector of y, loaded before
-// the product's wait, clips and stores it.  A strip row of a tile is 128
-// bytes: y and out move as whole rows.
+// conflict), then each thread adds its vector of y, clips and stores it.  A
+// strip row of a tile is 128 bytes: y and out move as whole rows.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/_kernels.py does this at first use).
@@ -56,7 +62,12 @@ namespace {
 
 constexpr int kK = 768;                  // product depth, bytes of a row
 constexpr int kSteps = kK / 32;          // wgmma K steps (k32)
-constexpr int kThreads = 256;            // two warpgroups
+// Consumer warpgroups of a thread block: three where the product is short
+// (M <= 64, 130-160 registers a thread), two where the registers allow no
+// more (188-254).
+__host__ __device__ constexpr int warpgroups(int m) {
+  return m <= 64 ? 3 : 2;
+}
 constexpr int kCols = 64;                // columns of W per work item
 constexpr int kLBO = 128;                // K-adjacent core matrices
 constexpr int kSBO = (kK / 16) * 128;    // 8-row groups
@@ -64,7 +75,7 @@ constexpr int kSRow = 68;                // s tile row, int32 (padded)
 constexpr int kSTile = 16 * kSRow;       // one s tile, int32
 
 __host__ __device__ constexpr int smem_bytes(int m) {
-  return m * kK + 2 * 2 * kSTile * 4;    // pat, two s tiles a warpgroup
+  return m * kK + warpgroups(m) * 2 * kSTile * 4;  // pat, 2 s tiles a wg
 }
 
 template <int N>
@@ -217,11 +228,6 @@ __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_commit_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 // Keeps the compiler from moving accesses of ``r`` across the asynchronous
 // product.
 __device__ __forceinline__ void pin(int& r) {
@@ -263,7 +269,7 @@ __device__ __forceinline__ void fold(const int (&d)[kNc / 2],
 }
 
 template <int kM, int kStride, int kSlices>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(128 * warpgroups(kM), 1)
 dotconst_kernel(const unsigned short* __restrict__ y,
                 unsigned short* __restrict__ out,
                 const int8_t* __restrict__ pat,
@@ -272,6 +278,7 @@ dotconst_kernel(const unsigned short* __restrict__ y,
   constexpr int kChunkN = kM > 160 ? 128 : kM;
   constexpr int kChunks = kM / kChunkN;
   constexpr bool kRotate = kStride % 8 != 0;
+  constexpr int kWG = warpgroups(kM), kThreads = 128 * kWG;
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int warp = t >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
@@ -292,15 +299,21 @@ dotconst_kernel(const unsigned short* __restrict__ y,
   int* stile = reinterpret_cast<int*>(smem + kM * kK) + wg * 2 * kSTile;
   const int tiles = (width + kCols - 1) / kCols;
   const long long total = static_cast<long long>(tiles) * strips;
-  const long long lo = total * blockIdx.x / gridDim.x;
-  const long long end = total * (blockIdx.x + 1) / gridDim.x;
+  const int lo = static_cast<int>(total * blockIdx.x / gridDim.x);
+  const int end = static_cast<int>(total * (blockIdx.x + 1) / gridDim.x);
   const int ei = t >> 3, ev = t & 7;   // epilogue: line, 8-column vector
   unsigned a[kSteps][4];
   int cur = -1, parity = 0;
+  // the warpgroup's items lo + wg, lo + wg + kWG, ... as (tile, strip);
+  // the y vector of the next one is in flight while this one runs
+  int tile = (lo + wg) / strips, strip = lo + wg - tile * strips;
+  uint4 ynext = make_uint4(0, 0, 0, 0);
+  if (lo + wg < end && tile * kCols + 8 * ev < width)
+    ynext = __ldg(reinterpret_cast<const uint4*>(
+        y + (static_cast<size_t>(strip) * 16 + ei) * width + tile * kCols +
+        8 * ev));
 
-  for (long long item = lo + wg; item < end; item += 2) {
-    const int tile = static_cast<int>(item / strips);
-    const long long strip = item - static_cast<long long>(tile) * strips;
+  for (int item = lo + wg; item < end; item += kWG) {
     const int col0 = tile * kCols;
     if (tile != cur) {
       // A fragments of this tile: rows col0 + 16 warp + g (+8), K bytes
@@ -319,9 +332,17 @@ dotconst_kernel(const unsigned short* __restrict__ y,
     }
     const int col = col0 + 8 * ev;
     const bool live = col < width;
-    const size_t off = static_cast<size_t>(strip * 16 + ei) * width + col;
-    uint4 yv = make_uint4(0, 0, 0, 0);
-    if (live) yv = __ldg(reinterpret_cast<const uint4*>(y + off));
+    const size_t off = (static_cast<size_t>(strip) * 16 + ei) * width + col;
+    strip += kWG;
+    while (strip >= strips) {
+      strip -= strips;
+      ++tile;
+    }
+    const uint4 yv = ynext;
+    if (item + kWG < end && tile * kCols + 8 * ev < width)
+      ynext = __ldg(reinterpret_cast<const uint4*>(
+          y + (static_cast<size_t>(strip) * 16 + ei) * width + tile * kCols +
+          8 * ev));
 
     int rot[4][2][2][2];
 #pragma unroll
@@ -339,12 +360,24 @@ dotconst_kernel(const unsigned short* __restrict__ y,
         pin(d[j]);
       }
       wgmma_fence();
+      // The warpgroups issue their products in item order, each after the
+      // one before it has issued its own (named barriers 1 + kWG + wg): the
+      // tensor cores then run one product at a time, and the other
+      // warpgroups' folds and stores overlap it.
+      if (c == 0 && item > lo)
+        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + kWG + wg), "n"(256)
+                     : "memory");
 #pragma unroll
       for (int ks = 0; ks < kSteps; ++ks)  // k32: two core matrices of K
         wgmma_rs<kChunkN>(
             d, a[ks], desc_of(bank + c * (kChunkN / 8) * kSBO + 2 * kLBO * ks),
             ks > 0);
-      wgmma_commit_wait();
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (c == 0 && item + 1 < end)
+        asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + kWG + (wg + 1) % kWG),
+                     "n"(256)
+                     : "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 #pragma unroll
       for (int j = 0; j < kChunkN / 2; ++j) pin(d[j]);
       if (c == 0)
@@ -398,7 +431,7 @@ cudaError_t configure(int* blocks_per_sm) {
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(kM));
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, kern, kThreads, smem_bytes(kM));
+          &blocks, kern, 128 * warpgroups(kM), smem_bytes(kM));
     if (e != cudaSuccess) return e;
     if (blocks < 1) return cudaErrorInvalidConfiguration;
   }
@@ -420,8 +453,8 @@ int launch(const void* y, void* out, const void* pat, const void* oh_t,
       static_cast<long long>((width + kCols - 1) / kCols) * strips;
   const int grid = static_cast<int>(
       total < static_cast<long long>(sms) * blocks ? total : sms * blocks);
-  dotconst_kernel<kM, kStride, kSlices><<<grid, kThreads, smem_bytes(kM),
-                                          st>>>(
+  dotconst_kernel<kM, kStride, kSlices><<<grid, 128 * warpgroups(kM),
+                                          smem_bytes(kM), st>>>(
       static_cast<const unsigned short*>(y), static_cast<unsigned short*>(out),
       static_cast<const int8_t*>(pat), static_cast<const int8_t*>(oh_t),
       strips, width, hi);
@@ -473,7 +506,8 @@ extern "C" int vfg_probe_dotconst(int m, int stride, int slices, int hi,
       misaligned(y) || misaligned(out) || misaligned(pat) ||
       misaligned(oh_t) || frames < 1 || rows < 1 || width < 8 ||
       width % 8 || hi < 0 || hi > 65535 ||
-      static_cast<long long>(frames) * rows * 16 * width >= (1LL << 40))
+      static_cast<long long>(frames) * rows * ((width + kCols - 1) / kCols) >=
+          (1LL << 30))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define VFG_LAUNCH(M, STRIDE, SLICES)                                     \
