@@ -59,14 +59,18 @@ Phases, one result line each:
                  the plain version at 4K and on phase 4's 10-bit cases;
                  K4 and K1 timed in turns; the probe's run_config for the
                  three configs (launches counted, bit-exact);
- 17. dot      -- every mode of the one-hot dot probe K6 (none, int8, bf16,
-                 f32 on the tensor cores, csrc/probe_dot.cu) and its gather
-                 mode == the plain version, exact, at 2 frames of 160x32 (a
-                 width that is not a multiple of 128), then the probe's run
-                 at 3840x2160, 8 frames (launches counted, every mode exact,
-                 bf16 == int8 == gather); the plain version and one library
-                 call per mode timed (torch._int_mm, bf16 and TF32
-                 torch.matmul, pat[:, t]);
+ 17. dot      -- every mode of the one-hot dot probe K6 (int8 and bf16 on
+                 the tensor cores in csrc/probe_dotconst.cu, a persistent
+                 wgmma kernel that builds the one-hot in registers; none,
+                 f32 (TF32) and gather in csrc/probe_dot.cu) == the plain
+                 version, exact, at 2 frames of 160x32 (a width that is not
+                 a multiple of 128), then the probe's run at 3840x2160, 8
+                 frames (launches counted, every mode exact, bf16 == int8 ==
+                 gather); the plain version and one library call per mode
+                 timed (torch._int_mm, bf16 and TF32 torch.matmul,
+                 pat[:, t]), int8 and bf16 against theirs; the int8 and bf16
+                 instances' registers, shared memory, local memory (none
+                 allowed) and blocks per SM, and their SASS counts;
  18. dot2     -- the same for K7's modes (none, int8, build, dotconst; the
                  dense product is csrc/probe_dotconst.cu, a persistent
                  wgmma kernel), the build instance's SASS counts, and the
@@ -93,7 +97,8 @@ Phases, one result line each:
                  --device cuda under --engine auto (K1) and --engine pallas
                  (K3), each against --device cpu: equal exit codes and
                  output bytes; K1 and K3 launches counted.
-Then one JSON line describing the ten kernels, and as the last line
+Then one JSON line describing the ten kernels (K6 in two rows, int8 and
+bf16), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  It needs a CUDA device and the rest of the repository.
 """
@@ -883,14 +888,18 @@ def main() -> int:
           f"plain (max |err| 0)")
     y, t, pat = _dot.dot_inputs(0, device=dev)
     dcounter.launches = 0
+    dcounter.by_mode.clear()
     k6 = probe_dot.run(y, t, pat)
     k6_launches = dcounter.launches
-    check(k6_launches > 0, "the K6 run never launched the dot kernel")
+    k6_by_mode = dict(dcounter.by_mode)
+    check(all(k6_by_mode.get(m, 0) > 0 for m in probe_dot.MODES),
+          f"the K6 run left a mode's kernel unlaunched: {k6_by_mode}")
     check(all(r["exact"] for n, r in k6.items() if n != "equal")
           and all(k6["equal"].values()), f"the K6 run at {W}x{H} found a "
           f"mode differing from its plain version, or from int8")
     k6_want = _dot.onehot_plain(y, t, pat)
-    k6_err = max_err(_dot.make_step("int8", t, pat)(y)[0], k6_want)
+    k6_err = {m: max_err(_dot.make_step(m, t, pat)(y)[0], k6_want)
+              for m in ("int8", "bf16")}
     plain6 = {"onehot": cuda_ms(lambda: _dot.onehot_plain(y, t, pat), 3,
                                 warmup=1),
               "none": cuda_ms(lambda: _dot.none_plain(y), 10)}
@@ -913,13 +922,31 @@ def main() -> int:
     lib6["gather"] = cuda_ms(lambda: pat[:, tl], 10)
     del tl
     torch.cuda.empty_cache()
-    phase("dot", f"K6 at {W}x{H}, {F} frames: {k6_launches} launches, every "
+    phase("dot", f"K6 at {W}x{H}, {F} frames: {k6_launches} launches ("
+          + ", ".join(f"{m} {n}" for m, n in k6_by_mode.items()) + "), every "
           f"mode exact, bf16 == int8 == gather; plain {plain6['onehot']:.3f} "
           f"ms (one-hot product), {plain6['none']:.4f} ms (none); library "
           f"(product only): torch._int_mm {lib6['int8']:.4f} ms, bf16 "
           f"matmul {lib6['bf16']:.4f} ms, TF32 matmul (allow_tf32 True) "
           f"{lib6['f32']:.4f} ms, pat[:, t] {lib6['gather']:.4f} ms; card "
           f"{card}")
+    phase("dot", "int8 and bf16 (csrc/probe_dotconst.cu) kernel / library "
+          "ms, fraction of the bound: " + ", ".join(
+              f"{m} {k6[m]['ms']:.4f} / {lib6[m]:.4f}, "
+              f"{k6[m]['bound_ms'] / k6[m]['ms']:.3f}, faster "
+              f"{k6[m]['ms'] < lib6[m]}" for m in ("int8", "bf16")))
+    for m in ("int8", "bf16"):
+        info = _dot.dotconst_info(_dot.M, _dot.ROWS_K6, m)
+        check(info["local_bytes"] == 0, f"the K6 {m} instance uses local "
+              f"memory: {info}")
+        phase("dot", "{} instance, registers / dynamic shared memory "
+              "bytes / local memory bytes per thread / thread blocks per "
+              "SM: {registers} / {smem} / {local_bytes} / "
+              "{blocks_per_sm}; ".format(m, **info) + sass_counts(
+                  _kernels, "probe_dotconst",
+                  f"dotconst_kernelILi144ELi18ELi8ELi{_dot.WGMMA_SRC[m]}E",
+                  keys=("IGMMA", "HGMMA", "IMMA", "LDL", "STL", "SHFL",
+                        "LDG")))
     del y, t, pat, k6_want
 
     # 18. build against multiply (K7)
@@ -1160,9 +1187,13 @@ def main() -> int:
         "launches": k4_launches, "max_abs_err": err_k4,
         "ms": min(t4[1], t4[2]), "plain_ms": k4_plain_ms,
         "bound_ms": k45_bound, "bound_by": "bytes", "library_ms": None},
-        probe_row("probe_dot", "probe_dot.cu", "tools/probe_dot.py:38",
-                  "int8", k6, k6_launches, k6_err, plain6["onehot"],
-                  lib6["int8"]),
+        probe_row("probe_dot", "probe_dotconst.cu", "tools/probe_dot.py:38",
+                  "int8", k6, k6_by_mode["int8"], k6_err["int8"],
+                  plain6["onehot"], lib6["int8"]),
+        {**probe_row("probe_dot", "probe_dotconst.cu",
+                     "tools/probe_dot.py:38", "bf16", k6, k6_by_mode["bf16"],
+                     k6_err["bf16"], plain6["onehot"], lib6["bf16"]),
+         "name": "probe_dot_bf16"},
         probe_row("probe_dot2", "probe_dotconst.cu",
                   "tools/probe_dot2.py:38", "dotconst", k7, k7_launches,
                   k7_err, plain7["dotconst"], lib7),

@@ -1,8 +1,9 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
 K1 (lattice and lane-word input, shard boot), K2, K3, the two probes of K1
 (K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu), the one-hot dot probes
-(K6-K8, csrc/probe_dot.cu and, for the dense product, csrc/probe_dotconst.cu)
-and the relayout probes (K9, K10, csrc/probe_relayout.cu).
+(K6-K8, csrc/probe_dot.cu and, for K6's int8 and bf16 products and the dense
+product, csrc/probe_dotconst.cu) and the relayout probes (K9, K10,
+csrc/probe_relayout.cu).
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one (the kernel has no CPU mode; the CPU tests hold the plain
@@ -388,18 +389,19 @@ def test_pipe_matches_k1(kind, cuda_device):
                                   "build", "dotconst"])
 def test_dot_probe_matches_plain(mode, width, cuda_device):
     """Every mode of the dot probe kernels (csrc/probe_dot.cu, K6 and K7;
-    dotconst csrc/probe_dotconst.cu) == its plain version, at a width that is
-    a multiple of 128 and one that is not; one and two block rows per thread
-    block, except dotconst, whose persistent grid schedules the strips and
-    refuses strips 2."""
+    int8, bf16 and dotconst csrc/probe_dotconst.cu) == its plain version, at
+    a width that is a multiple of 128 and one that is not; one and two block
+    rows per thread block, except the modes of csrc/probe_dotconst.cu, whose
+    persistent grid schedules the strips and refuses strips 2."""
     from versatilefilmgrain_tpu_torch.tools import _dot
     y, t, pat, constoh = _dot.dot2_inputs(13, 3, 48, width,
                                           device=cuda_device)
     want = _dot.plain(mode, y, t, pat, constoh)
-    if mode == "dotconst":
-        with pytest.raises(ValueError, match="strips 2: dotconst"):
+    persistent = mode in _dot.WGMMA_SRC
+    if persistent:
+        with pytest.raises(ValueError, match=f"strips 2: {mode}"):
             _dot.make_step(mode, t, pat, constoh, strips=2)(y)
-    for strips in (1,) if mode == "dotconst" else (1, 2):
+    for strips in (1,) if persistent else (1, 2):
         before = _dot.dot_probe_cuda.launches
         got = _dot.make_step(mode, t, pat, constoh, strips=strips)(y)[0]
         torch.cuda.synchronize()
@@ -489,6 +491,74 @@ def test_dotconst_launches_repeat_exactly(m, rows, cuda_device):
     assert torch.equal(first, _dot.dotconst_plain(y, pat, oh, rows=rows,
                                                   clip_hi=hi))
     assert _dot.dotconst_info(m, rows)["local_bytes"] == 0
+
+
+ONEHOT_WGMMA_MODES = ["int8", "bf16"]
+
+
+def _onehot_inputs(frames, height, width, seed, dev):
+    """K6's (y, t, pat) with some indices outside [0, 768) in every frame:
+    they must match no one-hot row."""
+    from versatilefilmgrain_tpu_torch.tools import _dot
+    y, t, pat = _dot.dot_inputs(seed, frames, height, width)
+    rng = np.random.default_rng(seed)
+    far = torch.from_numpy(rng.random(t.shape) < 0.05)
+    t[far] = torch.from_numpy(rng.integers(768, 5000, t.shape, np.int32))[far]
+    t[:, 0, 0, :4] = torch.tensor([-1, 768, -300, 767], dtype=torch.int32)
+    return y.to(dev), t.to(dev), pat.to(dev)
+
+
+@pytest.mark.parametrize("width", [64, 160, 200, 256, 296])
+@pytest.mark.parametrize("mode", ONEHOT_WGMMA_MODES)
+def test_onehot_wgmma_matches_plain(mode, width, cuda_device):
+    """K6's int8 and bf16 products (csrc/probe_dotconst.cu, the one-hot
+    built in registers) == the plain one-hot product, at widths of whole
+    and partial 64-column tiles, on a plane of 4 frames x 50 block rows; y
+    at 0 and at the clip limit on alternate lines, so both clip ends are
+    hit, and t holding indices outside [0, 768).  At width 296 thread
+    blocks' work ranges cross a column-tile boundary on a 132-SM card."""
+    from versatilefilmgrain_tpu_torch.tools import _dot
+    frames, R = 4, 50
+    y, t, pat = _onehot_inputs(frames, 16 * R, width, 37, cuda_device)
+    y[:, 0::2] = 0
+    y[:, 1::2] = _dot.CLIP_HI
+    info = _dot.dotconst_info(_dot.M, _dot.ROWS_K6, mode)
+    ctas = min(-(-width // _dot.DOTCONST_COLS) * frames * R,
+               torch.cuda.get_device_properties(0).multi_processor_count
+               * info["blocks_per_sm"])
+    ranges = _dot.dotconst_schedule(frames, R, width, ctas)
+    crosses = any(lo // (frames * R) != (end - 1) // (frames * R)
+                  for lo, end in ranges if end > lo)
+    assert crosses or width != 296
+    want = _dot.onehot_plain(y, t, pat)
+    before = _dot.dot_probe_cuda.launches
+    got = _dot.make_step(mode, t, pat)(y)[0]
+    torch.cuda.synchronize()
+    assert _dot.dot_probe_cuda.launches == before + 1
+    assert torch.equal(got, want), f"{mode} W={width}"
+    assert bool((want == 0).any()) and bool((want == _dot.CLIP_HI).any())
+    assert not bool(((want == 0) | (want == _dot.CLIP_HI)).all())
+
+
+@pytest.mark.parametrize("mode", ONEHOT_WGMMA_MODES)
+def test_onehot_wgmma_launches_repeat_exactly(mode, cuda_device):
+    """Two launches of K6's int8 or bf16 product give identical bytes (the
+    fold has no atomics), each adds one to the launch counter, and the
+    instance spills nothing."""
+    from versatilefilmgrain_tpu_torch.tools import _dot
+    y, t, pat = _onehot_inputs(3, 48, 200, 41, cuda_device)
+    step = _dot.make_step(mode, t, pat)
+    before = _dot.dot_probe_cuda.launches
+    before_mode = _dot.dot_probe_cuda.by_mode[mode]
+    first = step(y)[0]
+    assert _dot.dot_probe_cuda.launches == before + 1
+    second = step(y)[0]
+    torch.cuda.synchronize()
+    assert _dot.dot_probe_cuda.launches == before + 2
+    assert _dot.dot_probe_cuda.by_mode[mode] == before_mode + 2
+    assert torch.equal(first, second)
+    assert torch.equal(first, _dot.onehot_plain(y, t, pat))
+    assert _dot.dotconst_info(_dot.M, _dot.ROWS_K6, mode)["local_bytes"] == 0
 
 
 def test_dot_probe_out_of_range_indices(cuda_device):

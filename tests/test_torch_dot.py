@@ -327,3 +327,34 @@ def test_dotconst_wrapper_checks(case, match):
         _dot.dot_probe_cuda(y, None, pat, oh_t, mode="dotconst",
                             clip_hi=_dot.CLIP_HI_SCALE, rows=rows, **kw)
     assert _dot.dot_probe_cuda.launches == launches
+
+
+@pytest.mark.parametrize("case,match", [
+    ("strips 2", "schedules its strips"), ("width 164", "multiple of 8"),
+    ("y misaligned", "y must be 16-byte aligned"),
+    ("cpu", "needs CUDA tensors")])
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_onehot_wgmma_wrapper_checks(mode, case, match):
+    """K6's int8 and bf16 products run on csrc/probe_dotconst.cu's
+    persistent grid: their wrapper takes strips 1 only, widths of 8, a
+    16-byte aligned y, and CUDA tensors; nothing is launched."""
+    width = 164 if case == "width 164" else 160
+    y, t, pat = _dot.dot_inputs(1, FR, HT, width)
+    kw = {}
+    if case == "strips 2":
+        kw = dict(strips=2)
+        match = f"strips 2: {mode} {match}"
+    elif case == "y misaligned":
+        y = _misaligned(y)
+    launches = _dot.dot_probe_cuda.launches
+    with pytest.raises(ValueError, match=match):
+        _dot.dot_probe_cuda(y, t, pat, mode=mode, **kw)
+    assert _dot.dot_probe_cuda.launches == launches
+
+
+@pytest.mark.parametrize("mode", ["none", "f32", "gather", "build", "int4"])
+def test_wgmma_info_refuses_other_modes(mode):
+    """Only dotconst, int8 and bf16 have a csrc/probe_dotconst.cu instance
+    to report on; the refusal comes before any build."""
+    with pytest.raises(ValueError, match="does not run csrc/probe_dotconst"):
+        _dot.dotconst_info(M, _dot.ROWS_K6, mode)

@@ -2,15 +2,17 @@
 // Hopper (sm_90a): one source, one template instance per mode.
 //
 // Replaces two TPU kernels of tools/ (each a `kernel` run by its `main`):
-//   K6 tools/probe_dot.py:38       modes none, int8, bf16, f32
-//   K7 tools/probe_dot2.py:38      modes none, int8, build
-// (K7's dotconst mode and K8, the dense product, are csrc/probe_dotconst.cu.)
+//   K6 tools/probe_dot.py:38       modes none, f32
+//   K7 tools/probe_dot2.py:38      modes none, build
+// (K6's int8 and bf16 modes, which are K7's int8 mode too, and K7's
+// dotconst mode and K8, the dense product, are persistent wgmma kernels in
+// csrc/probe_dotconst.cu.)
 // For every (frame f, 16-line block row r) of a (F, 16R, W) uint16 plane y
 // they compute, with `hi` = 4092,
 //   out[f, 16r + i, w] = clip(y[f, 16r + i, w] + s[i, w], 0, hi),  i < 16,
 //   s[i, w] = sum over slices p < 8 of cand[18 p + i, w],
 // where cand is
-//   int8/bf16/f32 (and gather): pat(144 x 768 int8) @ onehot(768 x W),
+//   f32 (and gather): pat(144 x 768 int8) @ onehot(768 x W),
 //                 onehot[k, w] = (k == t[f, r, w]), so cand[m, w] = pat[m, t];
 //   build:        no product: s8[j, w] = sum_{q<8} onehot[96 q + j, w],
 //                 s[i] = sum_{p<8} s8[(i + 2p) mod 16] (the TPU build mode's
@@ -21,33 +23,30 @@
 //
 // What bounds it on this card, per 8-frame 3840x2160 step (computed from the
 // H100 SXM data sheet, not measured): y in and out is 265.4 MB and t 16.6 MB,
-// 0.084 ms at 3.35 TB/s (none 0.079 ms); the 144-row product is 917.3 G int8
-// operations, 0.464 ms at 1,979 TOPS, so int8 is bound by operations,
-// bf16 at 989 TFLOP/s by 0.927 ms, f32 (TF32) at 495 by 1.853 ms.  gather,
-// build and none are bound by bytes.
+// 0.084 ms at 3.35 TB/s (none 0.079 ms); the 144-row product is 917.3 G
+// operations, f32 (TF32) at 495 TFLOP/s 1.853 ms, so f32 is bound by
+// operations.  gather, build and none are bound by bytes.
 //
 // Design.  A thread block of 8 warps owns 128 columns of `strips` block rows
 // of one frame (grid: column tiles x row groups x frames); each warp owns 16
-// columns, two n-tiles of 8.  The product runs on the tensor cores with
-// mma.sync (m16n8k32 s8 -> s32, m16n8k16 bf16 -> f32, m16n8k8 tf32 -> f32),
-// every K step for all 9 m-tiles, as the TPU's dot does; skipping the
-// steps where the one-hot is zero is the gather's job.  A (the pattern) comes
-// from shared memory: the int8 bank (144 x 768, 110,592 bytes) is staged
-// whole in dynamic shared memory once per thread block;
-// the bf16 and f32 banks (221 KB, 442 KB) do not fit, so 128 (bf16) or 64
-// (f32) columns of K are converted from int8 and staged at a time.  Rows are
-// padded by 16 bytes so that a warp's A-fragment loads hit 32 banks.  B (the
-// one-hot) is built in registers from the thread's t value, with no memory
-// access: a thread's B column is one w, and each register holds 4 (int8),
-// 2 (bf16) or 1 (tf32) rows of it, so the fragment is one compare and shift
-// per register.  TF32 is exact here: every input is an integer of at most 8
-// bits, and every sum is one entry of pat.
+// columns, two n-tiles of 8.  The f32 product runs on the tensor cores with
+// mma.sync (m16n8k8 tf32 -> f32), every K step for all 9 m-tiles, as the
+// TPU's dot does; skipping the steps where the one-hot is zero is the
+// gather's job.  A (the pattern) comes from shared memory: the f32 bank
+// (442 KB) does not fit, so 64 columns of K are converted from int8 and
+// staged at a time (the gather stages the int8 bank, 144 x 768, 110,592
+// bytes, whole, once per thread block).  Rows are padded by 16 bytes so
+// that a warp's A-fragment loads hit 32 banks.  B (the one-hot) is built in
+// registers from the thread's t value, with no memory access: a thread's B
+// column is one w, and each register holds 1 (tf32) row of it, so the
+// fragment is one compare per register.  TF32 is exact here: every input
+// is an integer of at most 8 bits, and every sum is one entry of pat.
 // The slices start every 18 rows and cross m-tile boundaries, so each
 // accumulator is added (shared-memory atomics) into a 16 x 128 int32 tile of
 // s, then the block writes clip(y + s) with neighbouring threads on
 // neighbouring columns.  Every mma is `asm volatile`, so none is dropped.
 //
-// build: the int8 mode's B-fragment build over every K step, with the mma
+// build: an int8 m16n8k32 B-fragment build over every K step, with the mma
 // replaced by the byte sums of the rows the output reads (K steps 3q hold
 // rows 96q .. 96q + 31; the low register holds rows 96q + j, j < 16).  The
 // compiler is free to drop the rest, and does: on the H100 (CUDA 12.8) the
@@ -66,8 +65,6 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
 
 constexpr int kK = 768;
@@ -77,18 +74,15 @@ constexpr int kThreads = 256;           // 8 warps
 constexpr int kCols = 128;              // columns per thread block
 constexpr int kSBytes = 16 * kCols * 4; // the int32 tile of s
 constexpr int kRowInt8 = kK + 16;       // padded bank row, bytes
-constexpr int kRowChunk = 256 + 16;     // padded bf16/f32 chunk row, bytes
+constexpr int kRowChunk = 256 + 16;     // padded f32 chunk row, bytes
 
-enum Mode { kNone = 0, kInt8 = 1, kBf16 = 2, kF32 = 3, kGather = 4,
-            kBuild = 5 };
-
-__host__ __device__ constexpr bool whole_bank(int mode) {
-  return mode == kInt8 || mode == kGather;
-}
+// Mode numbers as the wrapper passes them; 1 (int8) and 2 (bf16) run in
+// csrc/probe_dotconst.cu.
+enum Mode { kNone = 0, kF32 = 3, kGather = 4, kBuild = 5 };
 
 __host__ __device__ constexpr int smem_bytes(int mode) {
-  return kSBytes + (whole_bank(mode) ? kM * kRowInt8
-                    : (mode == kBf16 || mode == kF32) ? kM * kRowChunk : 0);
+  return kSBytes + (mode == kGather ? kM * kRowInt8
+                    : mode == kF32 ? kM * kRowChunk : 0);
 }
 
 // The (m, 768) int8 bank into padded shared rows, 16 bytes a thread.
@@ -106,63 +100,34 @@ __device__ __forceinline__ int sbyte(unsigned v, int j) {
   return static_cast<int8_t>((v >> (8 * j)) & 0xffu);
 }
 
-// bf16 bits of a small integer (exact: |v| < 2^8).
-__device__ __forceinline__ unsigned bf16_bits(int v) {
-  return __float_as_uint(static_cast<float>(v)) >> 16;
-}
-
-// Columns kc0 .. kc0 + chunk - 1 of the 144-row int8 bank, converted to bf16
-// (128 columns) or f32 (64 columns), into padded shared rows.
-template <int kMode>
+// Columns kc0 .. kc0 + 63 of the 144-row int8 bank, converted to f32, into
+// padded shared rows.
 __device__ __forceinline__ void stage_chunk(unsigned char* bank,
                                             const int8_t* pat, int kc0) {
-  constexpr int kWords = (kMode == kBf16 ? 128 : 64) / 4;  // per row
+  constexpr int kWords = 64 / 4;  // per row
   for (int i = threadIdx.x; i < 144 * kWords; i += kThreads) {
     const int row = i / kWords, wd = i - row * kWords;
     const unsigned v = __ldg(reinterpret_cast<const unsigned*>(
         pat + row * kK + kc0) + wd);
-    unsigned char* dst = bank + row * kRowChunk;
-    if constexpr (kMode == kBf16) {
-      *reinterpret_cast<uint2*>(dst + wd * 8) = make_uint2(
-          bf16_bits(sbyte(v, 0)) | (bf16_bits(sbyte(v, 1)) << 16),
-          bf16_bits(sbyte(v, 2)) | (bf16_bits(sbyte(v, 3)) << 16));
-    } else {
-      *reinterpret_cast<float4*>(dst + wd * 16) = make_float4(
-          float(sbyte(v, 0)), float(sbyte(v, 1)), float(sbyte(v, 2)),
-          float(sbyte(v, 3)));
-    }
+    *reinterpret_cast<float4*>(bank + row * kRowChunk + wd * 16) =
+        make_float4(float(sbyte(v, 0)), float(sbyte(v, 1)),
+                    float(sbyte(v, 2)), float(sbyte(v, 3)));
   }
 }
 
-__device__ __forceinline__ void mma(int (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
+__device__ __forceinline__ void mma_tf32(float (&c)[4],
+                                         const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
   asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-template <int kMode>
-__device__ __forceinline__ void mma(float (&c)[4], const unsigned (&a)[4],
-                                    unsigned b0, unsigned b1) {
-  if constexpr (kMode == kBf16) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  } else {
-    asm volatile(
-        "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// One-hot B registers of an int8 m16n8k32 step at K row k0: the thread's
-// rows are k0 + 4 tig + (0..3) and k0 + 16 + 4 tig + (0..3), one byte each.
+// One-hot B registers of an int8 m16n8k32 step at K row k0 (build): the
+// thread's rows are k0 + 4 tig + (0..3) and k0 + 16 + 4 tig + (0..3), one
+// byte each.
 __device__ __forceinline__ void onehot_s8(int tv, int k0, int tig,
                                           unsigned& b0, unsigned& b1) {
   const int d = tv - k0 - 4 * tig;
@@ -204,7 +169,7 @@ dot_kernel(const unsigned short* __restrict__ y,
   const int col0 = blockIdx.x * kCols;
   const int r0 = blockIdx.y * strips, r1 = min(rows, r0 + strips);
 
-  if constexpr (whole_bank(kMode)) stage_int8(bank, pat, kM);
+  if constexpr (kMode == kGather) stage_int8(bank, pat, kM);
   __syncthreads();
 
   for (int r = r0; r < r1; ++r) {
@@ -255,16 +220,14 @@ dot_kernel(const unsigned short* __restrict__ y,
       store_strip<2>(ys, os, s, col0, width, hi);
       __syncthreads();
     } else {
-      using Acc = typename std::conditional<kMode == kBf16 || kMode == kF32,
-                                            float, int>::type;
       constexpr int kMT = kM / 16;
-      Acc acc[kMT][2][4];
+      float acc[kMT][2][4];
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
         for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mt][nt][j] = Acc(0);
+          for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
       int tv[2];
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
@@ -273,68 +236,35 @@ dot_kernel(const unsigned short* __restrict__ y,
       }
       for (int i = threadIdx.x; i < 16 * kCols; i += kThreads) s[i] = 0;
 
-      if constexpr (kMode == kInt8) {
+      constexpr int kChunk = 64;  // K per stage
+      const unsigned one = 0x3F800000u;
+      for (int kc0 = 0; kc0 < kK; kc0 += kChunk) {
+        __syncthreads();  // the previous chunk is consumed
+        stage_chunk(bank, pat, kc0);
         __syncthreads();
-        const unsigned char* arow = bank + g * kRowInt8 + 4 * tig;
+        // the thread's columns: tig, 4 tig bytes
+        const unsigned char* arow = bank + g * kRowChunk + 4 * tig;
 #pragma unroll 1
-        for (int ks = 0; ks < kK / 32; ++ks) {
+        for (int kk = 0; kk < kChunk; kk += 8) {
           unsigned b[2][2];
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-            onehot_s8(tv[nt], 32 * ks, tig, b[nt][0], b[nt][1]);
+          for (int nt = 0; nt < 2; ++nt) {
+            // rows kc0 + kk + tig and + 4
+            const int d = tv[nt] - kc0 - kk - tig;
+            b[nt][0] = d == 0 ? one : 0u;
+            b[nt][1] = d == 4 ? one : 0u;
+          }
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
-            const unsigned char* ap = arow + mt * 16 * kRowInt8 + 32 * ks;
+            const unsigned char* ap = arow + mt * 16 * kRowChunk + kk * 4;
+            // second register pair: 4 columns on
             const unsigned a[4] = {
                 *reinterpret_cast<const unsigned*>(ap),
-                *reinterpret_cast<const unsigned*>(ap + 8 * kRowInt8),
+                *reinterpret_cast<const unsigned*>(ap + 8 * kRowChunk),
                 *reinterpret_cast<const unsigned*>(ap + 16),
-                *reinterpret_cast<const unsigned*>(ap + 8 * kRowInt8 + 16)};
-            mma(acc[mt][0], a, b[0][0], b[0][1]);
-            mma(acc[mt][1], a, b[1][0], b[1][1]);
-          }
-        }
-      } else {
-        constexpr int kChunk = kMode == kBf16 ? 128 : 64;  // K per stage
-        constexpr int kStep = kMode == kBf16 ? 16 : 8;     // K per mma
-        constexpr int kEl = kMode == kBf16 ? 2 : 4;        // bytes
-        const unsigned one = kMode == kBf16 ? 0x3F80u : 0x3F800000u;
-        for (int kc0 = 0; kc0 < kK; kc0 += kChunk) {
-          __syncthreads();  // the previous chunk is consumed
-          stage_chunk<kMode>(bank, pat, kc0);
-          __syncthreads();
-          // the thread's columns: 2 tig (bf16) or tig (tf32), 4 tig bytes
-          const unsigned char* arow = bank + g * kRowChunk + 4 * tig;
-#pragma unroll 1
-          for (int kk = 0; kk < kChunk; kk += kStep) {
-            unsigned b[2][2];
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              if constexpr (kMode == kBf16) {
-                // rows kc0 + kk + 2 tig + (0, 1) and + 8
-                const int d = tv[nt] - kc0 - kk - 2 * tig;
-                b[nt][0] = d == 0 ? one : (d == 1 ? one << 16 : 0u);
-                b[nt][1] = d == 8 ? one : (d == 9 ? one << 16 : 0u);
-              } else {
-                // rows kc0 + kk + tig and + 4
-                const int d = tv[nt] - kc0 - kk - tig;
-                b[nt][0] = d == 0 ? one : 0u;
-                b[nt][1] = d == 4 ? one : 0u;
-              }
-            }
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) {
-              const unsigned char* ap = arow + mt * 16 * kRowChunk + kk * kEl;
-              // second register pair: 8 (bf16) or 4 (tf32) columns on
-              const unsigned a[4] = {
-                  *reinterpret_cast<const unsigned*>(ap),
-                  *reinterpret_cast<const unsigned*>(ap + 8 * kRowChunk),
-                  *reinterpret_cast<const unsigned*>(ap + 16),
-                  *reinterpret_cast<const unsigned*>(ap + 8 * kRowChunk +
-                                                     16)};
-              mma<kMode>(acc[mt][0], a, b[0][0], b[0][1]);
-              mma<kMode>(acc[mt][1], a, b[1][0], b[1][1]);
-            }
+                *reinterpret_cast<const unsigned*>(ap + 8 * kRowChunk + 16)};
+            mma_tf32(acc[mt][0], a, b[0][0], b[0][1]);
+            mma_tf32(acc[mt][1], a, b[1][0], b[1][1]);
           }
         }
       }
@@ -348,15 +278,9 @@ dot_kernel(const unsigned short* __restrict__ y,
           const int p = row / kStride, i = row - p * kStride;
           if (p < kSlices && i < 16) {
 #pragma unroll
-            for (int nt = 0; nt < 2; ++nt) {
-              int v;
-              if constexpr (kMode == kBf16 || kMode == kF32)
-                v = __float2int_rn(acc[mt][nt][j]);
-              else
-                v = acc[mt][nt][j];
+            for (int nt = 0; nt < 2; ++nt)
               atomicAdd(s + i * kCols + warp * 16 + nt * 8 + 2 * tig +
-                            (j & 1), v);
-            }
+                            (j & 1), __float2int_rn(acc[mt][nt][j]));
           }
         }
       __syncthreads();
@@ -391,12 +315,13 @@ int launch(const void* y, void* out, const void* t, const void* pat,
 }  // namespace
 
 // One probe step.  `y`, `out`: (frames, 16 rows, width) uint16; `t`:
-// (frames, rows, 1, width) int32 (int8, bf16, f32, gather, build; an index
-// outside [0, 768) matches no one-hot row); `pat`: (144, 768) int8, 16-byte
-// aligned (int8, bf16, f32, gather); (m, stride, slices) = (144, 18, 8).
-// Modes: 0 none, 1 int8, 2 bf16, 3 f32, 4 gather, 5 build.  A thread block
-// covers 128 columns of `strips` block rows.  All pointers are device
-// pointers.  Launches on `stream` and returns cudaGetLastError().
+// (frames, rows, 1, width) int32 (f32, gather, build; an index outside
+// [0, 768) matches no one-hot row); `pat`: (144, 768) int8, 16-byte aligned
+// (f32, gather); (m, stride, slices) = (144, 18, 8).  Modes: 0 none, 3 f32,
+// 4 gather, 5 build (1 int8 and 2 bf16 run in csrc/probe_dotconst.cu and
+// are refused here).  A thread block covers 128 columns of `strips` block
+// rows.  All pointers are device pointers.  Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int vfg_probe_dot(int mode, int m, int stride, int slices, int hi,
                              const void* y, void* out, const void* t,
                              const void* pat, int frames, int rows, int width,
@@ -404,7 +329,7 @@ extern "C" int vfg_probe_dot(int mode, int m, int stride, int slices, int hi,
   if (y == nullptr || out == nullptr || frames < 1 || frames > 65535 ||
       rows < 1 || width < 1 || strips < 1 || hi < 0 || hi > 65535)
     return int(cudaErrorInvalidValue);
-  const bool needs_t = mode >= kInt8 && mode <= kBuild;
+  const bool needs_t = mode >= kF32 && mode <= kBuild;
   const bool needs_pat = mode != kNone && mode != kBuild;
   if ((needs_t && t == nullptr) || (needs_pat && pat == nullptr) ||
       (needs_pat && reinterpret_cast<uintptr_t>(pat) % 16) || m != kM ||
@@ -415,8 +340,6 @@ extern "C" int vfg_probe_dot(int mode, int m, int stride, int slices, int hi,
   launch<MODE>(y, out, t, pat, frames, rows, width, strips, hi, st)
   switch (mode) {
     case kNone: return VFG_DOT(kNone);
-    case kInt8: return VFG_DOT(kInt8);
-    case kBf16: return VFG_DOT(kBf16);
     case kF32: return VFG_DOT(kF32);
     case kGather: return VFG_DOT(kGather);
     case kBuild: return VFG_DOT(kBuild);

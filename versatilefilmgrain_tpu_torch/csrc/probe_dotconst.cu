@@ -1,45 +1,65 @@
-// The dense int8 product of the one-hot dot probes, written for Hopper
-// (sm_90a): a persistent warpgroup-MMA (wgmma) kernel, one template instance
-// per (M, stride, slices).
+// The persistent products of the one-hot dot probes, written for Hopper
+// (sm_90a): a warpgroup-MMA (wgmma) kernel, one template instance per
+// (M, stride, slices, source of A).
 //
-// Replaces the dense product of two TPU kernels of tools/:
+// Replaces the tensor-core products of three TPU kernels of tools/:
 //   K7 tools/probe_dot2.py:38      dotconst mode: M = 144, stride 18, 8 slices
 //   K8 tools/probe_dotscale.py:22  M = 16, 64, 128, 144, 160, 256, stride 16,
 //                                  M / 16 slices
+//   K6 tools/probe_dot.py:38       modes int8 and bf16 (and K7's int8 mode,
+//                                  the same product): M = 144, stride 18,
+//                                  8 slices
 // For every (frame f, 16-line block row r) of a (F, 16R, W) uint16 plane y,
 //   out[f, 16r + i, w] = clip(y[f, 16r + i, w] + s[i, w], 0, hi),  i < 16,
 //   s[i, w] = sum over slices p of (pat @ oh)[p * stride + i, w],
-// with pat (M, 768) int8 and oh (768, W) 0/1 int8, read here as oh_t, its
-// (W, 768) transpose.  The product is the same for every (f, r); the probes
-// ask what it costs when recomputed per block row, as the TPU kernel did, so
-// every strip runs all 2 M 768 W operations on the tensor cores.
+// with pat (M, 768) int8 and oh (768, W) 0/1, read here as its (W, 768)
+// transpose.  For dotconst and K8 that is oh_t, a constant int8 matrix, the
+// same for every (f, r).  For K6 it is the one-hot of the block row's
+// indices, oh[k, w] = (k == t[f, r, w]) (an index outside [0, 768) matches
+// no row), so the product gathers pat[:, t]; the probe asks what that costs
+// on the tensor cores, as the TPU's dot computed it, so every strip runs all
+// 2 M 768 W operations, every K step, in int8 or in bf16.
 //
 // What bounds it on this card, per 8-frame 3840x2160 step (computed from the
 // H100 SXM data sheet, not measured): y in and out is 265.4 MB, 0.079 ms at
-// 3.35 TB/s; the product is 6.37 G int8 operations x M, 0.4635 ms at
-// M = 144 and 0.824 ms at M = 256 at 1,979 TOPS.  M >= 32 is bound by
+// 3.35 TB/s (with K6's t, 16.6 MB more, 0.084 ms); the product is 6.37 G
+// operations x M, 0.4635 ms at M = 144 and 0.824 ms at M = 256 at 1,979
+// int8 TOPS, 0.927 ms at M = 144 at 989 bf16 TFLOP/s.  M >= 32 is bound by
 // operations, M = 16 by bytes.
 //
 // Design.  One thread block per SM (the occupancy calculator's count) walks
 // a contiguous range of the (64-column tile, strip) work items, ordered
 // column tile first, so a range crosses few tile boundaries.  The block
 // stages pat once, in wgmma's core-matrix order (8 rows x 16 bytes, no
-// swizzle; K-adjacent core matrices 128 bytes apart, 8-row groups 6,144),
+// swizzle; K-adjacent core matrices 128 bytes apart, 8-row groups one
+// bank row of core matrices apart: 6,144 bytes in int8, 12,288 in bf16),
 // and its warpgroups (two; three at M <= 64, where registers allow) take
 // the range's items in turn.  A warpgroup computes, per strip,
 //   D (64 columns of W x N) = oh_t tile (64 x 768) . pat^T (768 x N)
-// with wgmma.m64nNk32.s32.s8.s8 in its RS form: A, the oh_t tile, lives in
-// registers (96 a thread, 24 K steps x 4), loaded from device memory once
-// per column tile; B is the staged pat.  N = M up to 160; M = 256 runs as
-// two N = 128 halves, so the accumulator stays at 64 registers.  Both
-// operands stay on chip: device memory sees y and out only.  The
-// warpgroups issue their products strictly in item order (a ring of named
-// barriers), so the tensor cores finish one warpgroup's product before the
-// next one's and each fold and store overlaps another warpgroup's product;
-// left to the hardware, the products of all warpgroups run interleaved,
-// end together, and the tensor cores idle through the folds, K7's with its
-// shuffles the longest.  Each thread's 16-byte vector of y is loaded one
-// item ahead.
+// with wgmma.m64nNk32.s32.s8.s8 (or m64n144k16.f32.bf16.bf16) in its RS
+// form: A lives in registers (96 a thread, 24 K steps x 4) and B is the
+// staged pat, its descriptor computed once and stepped by an add per K
+// step, which keeps the issue of a product short.  A is loaded from
+// device memory once per column tile (dotconst, K8), or built per item
+// from the thread's two indices of t (K6), with one subtract and one
+// clamping shift a register: the register holds K rows k0 + (0..3) (int8;
+// 1 << 8 (t - k0)) or k0 + (0, 1) (bf16; 0x3F80 << 16 (t - k0)), and a
+// shift past 31 leaves 0.  bf16's 48 K steps
+// would take 192 registers of A on top of its 72 of D, so A is built and
+// issued in two halves of 24 steps: the second half's registers are
+// written only once the first half's products are done (wait_group), and
+// the other warpgroup's half-product keeps the tensor cores busy meanwhile.
+// Its bank (221,184 bytes) leaves room for one s tile a warpgroup, not two.
+// N = M up to 160; M = 256 runs as two N = 128 halves, so the accumulator
+// stays at 64 registers.  Both operands stay on chip: device memory sees
+// y, out (and t) only.  The warpgroups issue their products strictly in
+// item order (a ring of named barriers, one turn per item and half), so
+// the tensor cores finish one warpgroup's product before the next one's
+// and each fold and store overlaps another warpgroup's product; left to
+// the hardware, the products of all warpgroups run interleaved, end
+// together, and the tensor cores idle through the folds, K7's with its
+// shuffles the longest.  Each thread's 16-byte vector of y (and its two
+// indices of t) are loaded one item ahead.
 //
 // The fold has no atomics.  The thread with warp w, lane 4g + tig holds D
 // rows 16w + g and 16w + g + 8 (two columns of W) and D columns 8j + 2tig +
@@ -47,6 +67,8 @@
 // that owns i, the one with tig = (i mod 8) / 2: for stride 16 that is the
 // thread itself; for stride 18 it is tig - p mod 4, reached by three quad
 // shuffles of the per-rotation sums.  Rows outside every slice are dropped.
+// bf16's D entries are exact integers in f32 (each is one value of pat or
+// 0), converted with __float2int_rn before the same fold.
 // Each thread ends with 8 values of s (2 columns x 4 values of i), written
 // to a 16 x 64 int32 tile in shared memory (rows padded to 68 words: no bank
 // conflict), then each thread adds its vector of y, clips and stores it.  A
@@ -58,10 +80,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kK = 768;                  // product depth, bytes of a row
-constexpr int kSteps = kK / 32;          // wgmma K steps (k32)
+constexpr int kK = 768;                  // product depth
+// Where A comes from: the constant oh_t (dotconst, K8), or the one-hot of
+// t built in registers, in int8 or in bf16 (K6).
+enum Src { kConst = 0, kOneHotS8 = 1, kOneHotBf16 = 2 };
 // Consumer warpgroups of a thread block: three where the product is short
 // (M <= 64, 130-160 registers a thread), two where the registers allow no
 // more (188-254).
@@ -70,12 +96,21 @@ __host__ __device__ constexpr int warpgroups(int m) {
 }
 constexpr int kCols = 64;                // columns of W per work item
 constexpr int kLBO = 128;                // K-adjacent core matrices
-constexpr int kSBO = (kK / 16) * 128;    // 8-row groups
 constexpr int kSRow = 68;                // s tile row, int32 (padded)
 constexpr int kSTile = 16 * kSRow;       // one s tile, int32
+constexpr int kSmemMax = 232448;         // opt-in dynamic shared memory
 
-__host__ __device__ constexpr int smem_bytes(int m) {
-  return m * kK + warpgroups(m) * 2 * kSTile * 4;  // pat, 2 s tiles a wg
+__host__ __device__ constexpr int row_bytes(int src) {
+  return kK * (src == kOneHotBf16 ? 2 : 1);
+}
+// s tiles a warpgroup: two, so that one item's fold never waits for the
+// epilogue of the one before; one where the bank leaves no room (bf16).
+__host__ __device__ constexpr int stiles(int m, int src) {
+  return m * row_bytes(src) + warpgroups(m) * 2 * kSTile * 4 <= kSmemMax ? 2
+                                                                        : 1;
+}
+__host__ __device__ constexpr int smem_bytes(int m, int src) {
+  return m * row_bytes(src) + warpgroups(m) * stiles(m, src) * kSTile * 4;
 }
 
 template <int N>
@@ -224,20 +259,74 @@ __device__ __forceinline__ void wgmma_rs<160>(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
+// bf16 with f32 accumulators, N = 144 (K6's bf16 mode); B not transposed.
+__device__ __forceinline__ void wgmma_rs_bf16(float (&d)[72],
+                                              const unsigned (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %77, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, "
+      "%10, %11, %12, %13, %14, %15, %16, %17, %18, %19, "
+      "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
+      "%70, %71"
+      "}, {%72, %73, %74, %75}, %76, p, 1, 1, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
 // Keeps the compiler from moving accesses of ``r`` across the asynchronous
 // product.
-__device__ __forceinline__ void pin(int& r) {
-  asm volatile("" : "+r"(r)::"memory");
+template <typename T>
+__device__ __forceinline__ void pin(T& r) {
+  if constexpr (std::is_same<T, float>::value)
+    asm volatile("" : "+f"(r)::"memory");
+  else
+    asm volatile("" : "+r"(r)::"memory");
 }
 
-// Shared-memory matrix descriptor, no swizzle.
-__device__ __forceinline__ uint64_t desc_of(uint32_t saddr) {
+// v << s, 0 for any s outside [0, 32) (PTX clamps the shift amount).
+__device__ __forceinline__ unsigned shl_clamp(unsigned v, int s) {
+  unsigned r;
+  asm("shl.b32 %0, %1, %2;" : "=r"(r) : "r"(v), "r"(s));
+  return r;
+}
+
+// bf16 bits of the int8 bytes j and j + 1 of w, low half first (exact).
+__device__ __forceinline__ unsigned bf16_pair(unsigned w, int j) {
+  const float lo = static_cast<int8_t>(w >> (8 * j));
+  const float hi = static_cast<int8_t>(w >> (8 * j + 8));
+  return (__float_as_uint(lo) >> 16) | (__float_as_uint(hi) & 0xFFFF0000u);
+}
+
+// Shared-memory matrix descriptor, no swizzle; `sbo`: 8-row groups.
+__device__ __forceinline__ uint64_t desc_of(uint32_t saddr, int sbo) {
   return uint64_t((saddr & 0x3FFFF) >> 4) |
-         (uint64_t(kLBO >> 4) << 16) | (uint64_t(kSBO >> 4) << 32);
+         (uint64_t(kLBO >> 4) << 16) | (uint64_t(sbo >> 4) << 32);
 }
 
 // Adds chunk [kN0, kN0 + kNc) of D into the per-rotation sums rot[k][h][e]
@@ -268,54 +357,103 @@ __device__ __forceinline__ void fold(const int (&d)[kNc / 2],
   }
 }
 
-template <int kM, int kStride, int kSlices>
+template <int kM, int kStride, int kSlices, int kSrc>
 __global__ void __launch_bounds__(128 * warpgroups(kM), 1)
 dotconst_kernel(const unsigned short* __restrict__ y,
                 unsigned short* __restrict__ out,
                 const int8_t* __restrict__ pat,
-                const int8_t* __restrict__ oh_t, int strips, int width,
+                const void* __restrict__ src_a, int strips, int width,
                 int hi) {
+  constexpr bool kOneHot = kSrc != kConst, kBf16 = kSrc == kOneHotBf16;
   constexpr int kChunkN = kM > 160 ? 128 : kM;
   constexpr int kChunks = kM / kChunkN;
   constexpr bool kRotate = kStride % 8 != 0;
   constexpr int kWG = warpgroups(kM), kThreads = 128 * kWG;
+  constexpr int kPieces = row_bytes(kSrc) / 16;  // core matrices along K
+  constexpr int kSBO = kPieces * 128;            // 8-row groups
+  constexpr int kSteps = row_bytes(kSrc) / 32;   // k32 (s8) or k16 (bf16)
+  constexpr int kHalves = kBf16 ? 2 : 1;         // A held a half at a time
+  constexpr int kStepsA = kSteps / kHalves;
+  constexpr int kTiles = stiles(kM, kSrc);
+  using Acc = typename std::conditional<kBf16, float, int>::type;
+  static_assert(!kOneHot || (kM == 144 && kChunks == 1),
+                "the one-hot product has one instance, N = M = 144");
   extern __shared__ __align__(128) unsigned char smem[];
   const int tid = threadIdx.x, wg = tid >> 7, t = tid & 127;
   const int warp = t >> 5, lane = tid & 31, g = lane >> 2, tig = lane & 3;
+  const int8_t* oh_t = static_cast<const int8_t*>(src_a);
+  const int* tix = static_cast<const int*>(src_a);
 
-  // pat into core-matrix order: 16-byte piece i = ((row / 8) * 48 + kc) * 8
-  // + row % 8 lands at byte 16 i
-  for (int i = tid; i < kM * (kK / 16); i += kThreads) {
-    const int r8 = i / (8 * (kK / 16)), rem = i - r8 * 8 * (kK / 16);
+  // pat into core-matrix order: 16-byte piece i = ((row / 8) * kPieces +
+  // kc) * 8 + row % 8 lands at byte 16 i; bf16 converted on the way
+  for (int i = tid; i < kM * kPieces; i += kThreads) {
+    const int r8 = i / (8 * kPieces), rem = i - r8 * 8 * kPieces;
     const int kc = rem >> 3, row = r8 * 8 + (rem & 7);
-    *reinterpret_cast<uint4*>(smem + 16 * i) =
-        __ldg(reinterpret_cast<const uint4*>(pat + row * kK + kc * 16));
+    uint4 v;
+    if constexpr (kBf16) {
+      const uint2 b =
+          __ldg(reinterpret_cast<const uint2*>(pat + row * kK + kc * 8));
+      v = make_uint4(bf16_pair(b.x, 0), bf16_pair(b.x, 2), bf16_pair(b.y, 0),
+                     bf16_pair(b.y, 2));
+    } else {
+      v = __ldg(reinterpret_cast<const uint4*>(pat + row * kK + kc * 16));
+    }
+    *reinterpret_cast<uint4*>(smem + 16 * i) = v;
   }
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
-  const uint32_t bank =
-      static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  int* stile = reinterpret_cast<int*>(smem + kM * kK) + wg * 2 * kSTile;
+  // the bank's descriptor; a K step or an N chunk further on adds its byte
+  // offset / 16 to the address field, which no offset here carries out of
+  const uint64_t bank = desc_of(
+      static_cast<uint32_t>(__cvta_generic_to_shared(smem)), kSBO);
+  int* stile = reinterpret_cast<int*>(smem + kM * row_bytes(kSrc)) +
+               wg * kTiles * kSTile;
   const int tiles = (width + kCols - 1) / kCols;
   const long long total = static_cast<long long>(tiles) * strips;
   const int lo = static_cast<int>(total * blockIdx.x / gridDim.x);
   const int end = static_cast<int>(total * (blockIdx.x + 1) / gridDim.x);
   const int ei = t >> 3, ev = t & 7;   // epilogue: line, 8-column vector
-  unsigned a[kSteps][4];
+  unsigned a[kStepsA][4];
   int cur = -1, parity = 0;
   // the warpgroup's items lo + wg, lo + wg + kWG, ... as (tile, strip);
-  // the y vector of the next one is in flight while this one runs
+  // the y vector (and the two indices of t) of the next one are in flight
+  // while this one runs
   int tile = (lo + wg) / strips, strip = lo + wg - tile * strips;
   uint4 ynext = make_uint4(0, 0, 0, 0);
-  if (lo + wg < end && tile * kCols + 8 * ev < width)
-    ynext = __ldg(reinterpret_cast<const uint4*>(
-        y + (static_cast<size_t>(strip) * 16 + ei) * width + tile * kCols +
-        8 * ev));
+  int tnext[2] = {-1, -1};
+  const auto prefetch = [&](bool valid) {
+    if (valid && tile * kCols + 8 * ev < width)
+      ynext = __ldg(reinterpret_cast<const uint4*>(
+          y + (static_cast<size_t>(strip) * 16 + ei) * width + tile * kCols +
+          8 * ev));
+    if constexpr (kOneHot) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        // A rows: columns col0 + 16 warp + g (+8); past W, no K row
+        const int col = tile * kCols + 16 * warp + g + 8 * r;
+        tnext[r] = valid && col < width
+                       ? __ldg(tix + static_cast<size_t>(strip) * width + col)
+                       : -1;
+      }
+    }
+  };
+  prefetch(lo + wg < end);
 
   for (int item = lo + wg; item < end; item += kWG) {
     const int col0 = tile * kCols;
-    if (tile != cur) {
+    // one-hot: the register of A for K rows k0 + (0..3) (int8) or k0 +
+    // (0, 1) (bf16) of a column with index tv is one << (x - c), x = 8 (tv
+    // - 4 tig) or 16 (tv - 2 tig), c = 256 ks + 128 (q >> 1); an index
+    // outside [0, 768) becomes -1024, whose x - c is negative: no row
+    int x[2] = {0, 0};
+    if constexpr (kOneHot) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int tv = unsigned(tnext[r]) < unsigned(kK) ? tnext[r] : -1024;
+        x[r] = kBf16 ? 16 * (tv - 2 * tig) : 8 * (tv - 4 * tig);
+      }
+    } else if (tile != cur) {
       // A fragments of this tile: rows col0 + 16 warp + g (+8), K bytes
       // 32 ks + 4 tig (+16); rows past W are zero
       cur = tile;
@@ -329,6 +467,16 @@ dotconst_kernel(const unsigned short* __restrict__ y,
         for (int ks = 0; ks < kSteps; ++ks)
           a[ks][q] = col < width ? __ldg(src + 8 * ks) : 0u;
       }
+      // Wait for the fragments here, by storing their OR to a padding
+      // word of the s tile that nothing reads: left to the product's fence,
+      // that wait also covers the next item's y, loaded after them on the
+      // same scoreboard, a trip to device memory before every product.
+      unsigned any = 0;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ++ks)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) any |= a[ks][q];
+      stile[(t & 15) * kSRow + 64] = static_cast<int>(any);
     }
     const int col = col0 + 8 * ev;
     const bool live = col < width;
@@ -339,10 +487,10 @@ dotconst_kernel(const unsigned short* __restrict__ y,
       ++tile;
     }
     const uint4 yv = ynext;
-    if (item + kWG < end && tile * kCols + 8 * ev < width)
-      ynext = __ldg(reinterpret_cast<const uint4*>(
-          y + (static_cast<size_t>(strip) * 16 + ei) * width + tile * kCols +
-          8 * ev));
+    // dotconst and K8 load the next item's y before this product, K6 its
+    // indices and y just after issuing it: on the H100 each order timed
+    // faster for its kernel (M = 16 and K6 int8 the most).
+    if constexpr (!kOneHot) prefetch(item + kWG < end);
 
     int rot[4][2][2][2];
 #pragma unroll
@@ -351,42 +499,77 @@ dotconst_kernel(const unsigned short* __restrict__ y,
       for (int h = 0; h < 2; ++h)
 #pragma unroll
         for (int e = 0; e < 2; ++e) rot[k][h][e][0] = rot[k][h][e][1] = 0;
+    // The warpgroups issue their products in item order, each after the
+    // one before it has issued its own (named barriers 1 + kWG + wg): the
+    // tensor cores then run one product at a time, and the other
+    // warpgroups' folds and stores overlap it.  bf16 takes a turn per half:
+    // (item, half 0) of every warpgroup, then (item, half 1) of every one.
+    // ``alone``: the range's last turn round holds this item only, so no
+    // other warpgroup's turn comes between its halves.
+    const bool alone = wg == 0 && item + 1 >= end;
+    const int next = item + 1 < end && wg + 1 < kWG ? wg + 1 : 0;
 #pragma unroll
     for (int c = 0; c < kChunks; ++c) {
-      int d[kChunkN / 2];
+      Acc d[kChunkN / 2];
 #pragma unroll
       for (int j = 0; j < kChunkN / 2; ++j) {
-        d[j] = 0;
+        d[j] = Acc(0);
         pin(d[j]);
       }
-      wgmma_fence();
-      // The warpgroups issue their products in item order, each after the
-      // one before it has issued its own (named barriers 1 + kWG + wg): the
-      // tensor cores then run one product at a time, and the other
-      // warpgroups' folds and stores overlap it.
-      if (c == 0 && item > lo)
-        asm volatile("bar.sync %0, %1;\n" ::"r"(1 + kWG + wg), "n"(256)
-                     : "memory");
 #pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks)  // k32: two core matrices of K
-        wgmma_rs<kChunkN>(
-            d, a[ks], desc_of(bank + c * (kChunkN / 8) * kSBO + 2 * kLBO * ks),
-            ks > 0);
-      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      if (c == 0 && item + 1 < end)
-        asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + kWG + (wg + 1) % kWG),
-                     "n"(256)
-                     : "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      for (int h = 0; h < kHalves; ++h) {
+        if constexpr (kOneHot) {
+          // the previous half's products are done: A may be rewritten
+#pragma unroll
+          for (int ks = 0; ks < kStepsA; ++ks)
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              a[ks][q] = shl_clamp(kBf16 ? 0x3F80u : 1u,
+                                   x[q & 1] - 256 * (h * kStepsA + ks) -
+                                       128 * (q >> 1));
+              pin(a[ks][q]);
+            }
+        }
+        wgmma_fence();
+        if (c == 0 && (h == 0 ? item > lo : !alone))
+          asm volatile("bar.sync %0, %1;\n" ::"r"(1 + kWG + wg), "n"(256)
+                       : "memory");
+#pragma unroll
+        for (int ks = 0; ks < kStepsA; ++ks) {  // two core matrices of K
+          const uint64_t desc =
+              bank + ((c * (kChunkN / 8) * kSBO +
+                       2 * kLBO * (h * kStepsA + ks)) >> 4);
+          if constexpr (kBf16)
+            wgmma_rs_bf16(d, a[ks], desc, h > 0 || ks > 0);
+          else
+            wgmma_rs<kChunkN>(d, a[ks], desc, ks > 0);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        if (c == 0 && (h < kHalves - 1 ? !alone : item + 1 < end))
+          asm volatile("bar.arrive %0, %1;\n" ::"r"(1 + kWG + next), "n"(256)
+                       : "memory");
+        if constexpr (kOneHot)
+          if (c == 0 && h == kHalves - 1) prefetch(item + kWG < end);
+        asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      }
 #pragma unroll
       for (int j = 0; j < kChunkN / 2; ++j) pin(d[j]);
-      if (c == 0)
+      if constexpr (kBf16) {
+        int di[kChunkN / 2];  // exact: each entry is one value of pat, or 0
+#pragma unroll
+        for (int j = 0; j < kChunkN / 2; ++j) di[j] = __float2int_rn(d[j]);
+        fold<kStride, kSlices, 0, kChunkN>(di, rot, tig);
+      } else if (c == 0) {
         fold<kStride, kSlices, 0, kChunkN>(d, rot, tig);
-      else
+      } else {
         fold<kStride, kSlices, kChunkN, kChunkN>(d, rot, tig);
+      }
     }
 
-    int* s = stile + parity * kSTile;
+    int* s = stile + (kTiles == 2 ? parity : 0) * kSTile;
+    // one tile: every thread has read the previous item's s
+    if constexpr (kTiles == 1)
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
 #pragma unroll
     for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -422,16 +605,17 @@ dotconst_kernel(const unsigned short* __restrict__ y,
   }
 }
 
-template <int kM, int kStride, int kSlices>
+template <int kM, int kStride, int kSlices, int kSrc>
 cudaError_t configure(int* blocks_per_sm) {
-  auto kern = dotconst_kernel<kM, kStride, kSlices>;
+  auto kern = dotconst_kernel<kM, kStride, kSlices, kSrc>;
   static int blocks = 0;
   if (blocks == 0) {
     cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes(kM));
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes(kM, kSrc));
     if (e == cudaSuccess)
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, kern, 128 * warpgroups(kM), smem_bytes(kM));
+          &blocks, kern, 128 * warpgroups(kM), smem_bytes(kM, kSrc));
     if (e != cudaSuccess) return e;
     if (blocks < 1) return cudaErrorInvalidConfiguration;
   }
@@ -439,11 +623,11 @@ cudaError_t configure(int* blocks_per_sm) {
   return cudaSuccess;
 }
 
-template <int kM, int kStride, int kSlices>
-int launch(const void* y, void* out, const void* pat, const void* oh_t,
+template <int kM, int kStride, int kSlices, int kSrc>
+int launch(const void* y, void* out, const void* pat, const void* a,
            int frames, int rows, int width, int hi, cudaStream_t st) {
   int blocks = 0, dev = 0, sms = 0;
-  cudaError_t e = configure<kM, kStride, kSlices>(&blocks);
+  cudaError_t e = configure<kM, kStride, kSlices, kSrc>(&blocks);
   if (e == cudaSuccess) e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -453,23 +637,23 @@ int launch(const void* y, void* out, const void* pat, const void* oh_t,
       static_cast<long long>((width + kCols - 1) / kCols) * strips;
   const int grid = static_cast<int>(
       total < static_cast<long long>(sms) * blocks ? total : sms * blocks);
-  dotconst_kernel<kM, kStride, kSlices><<<grid, 128 * warpgroups(kM),
-                                          smem_bytes(kM), st>>>(
+  dotconst_kernel<kM, kStride, kSlices, kSrc><<<
+      grid, 128 * warpgroups(kM), smem_bytes(kM, kSrc), st>>>(
       static_cast<const unsigned short*>(y), static_cast<unsigned short*>(out),
-      static_cast<const int8_t*>(pat), static_cast<const int8_t*>(oh_t),
-      strips, width, hi);
+      static_cast<const int8_t*>(pat), a, strips, width, hi);
   return int(cudaGetLastError());
 }
 
-template <int kM, int kStride, int kSlices>
+template <int kM, int kStride, int kSlices, int kSrc>
 int info(int* regs, int* smem, int* local, int* blocks) {
   cudaFuncAttributes fa;
-  cudaError_t e = configure<kM, kStride, kSlices>(blocks);
+  cudaError_t e = configure<kM, kStride, kSlices, kSrc>(blocks);
   if (e == cudaSuccess)
-    e = cudaFuncGetAttributes(&fa, dotconst_kernel<kM, kStride, kSlices>);
+    e = cudaFuncGetAttributes(&fa,
+                              dotconst_kernel<kM, kStride, kSlices, kSrc>);
   if (e != cudaSuccess) return int(e);
   *regs = fa.numRegs;
-  *smem = smem_bytes(kM);
+  *smem = smem_bytes(kM, kSrc);
   *local = static_cast<int>(fa.localSizeBytes);
   return 0;
 }
@@ -477,52 +661,64 @@ int info(int* regs, int* smem, int* local, int* blocks) {
 }  // namespace
 
 #define VFG_DOTCONST_DISPATCH(CALL)                                        \
-  if (m == 144 && stride == 18 && slices == 8) return CALL(144, 18, 8);    \
+  if (src == kOneHotS8 || src == kOneHotBf16) {                            \
+    if (m != 144 || stride != 18 || slices != 8)                           \
+      return int(cudaErrorInvalidValue);                                   \
+    return src == kOneHotS8 ? CALL(144, 18, 8, kOneHotS8)                  \
+                            : CALL(144, 18, 8, kOneHotBf16);               \
+  }                                                                        \
+  if (src != kConst) return int(cudaErrorInvalidValue);                    \
+  if (m == 144 && stride == 18 && slices == 8)                             \
+    return CALL(144, 18, 8, kConst);                                       \
   if (stride != 16 || slices * 16 != m) return int(cudaErrorInvalidValue); \
   switch (m) {                                                             \
-    case 16: return CALL(16, 16, 1);                                       \
-    case 64: return CALL(64, 16, 4);                                       \
-    case 128: return CALL(128, 16, 8);                                     \
-    case 144: return CALL(144, 16, 9);                                     \
-    case 160: return CALL(160, 16, 10);                                    \
-    case 256: return CALL(256, 16, 16);                                    \
+    case 16: return CALL(16, 16, 1, kConst);                               \
+    case 64: return CALL(64, 16, 4, kConst);                               \
+    case 128: return CALL(128, 16, 8, kConst);                             \
+    case 144: return CALL(144, 16, 9, kConst);                             \
+    case 160: return CALL(160, 16, 10, kConst);                            \
+    case 256: return CALL(256, 16, 16, kConst);                            \
     default: return int(cudaErrorInvalidValue);                            \
   }
 
-// One probe step.  `y`, `out`: (frames, 16 rows, width) uint16, 16-byte
-// aligned, width a multiple of 8; `pat`: (m, 768) int8 and `oh_t`: (width,
-// 768) int8, both 16-byte aligned; (m, stride, slices) = (144, 18, 8) or
+// One probe step.  `src`: 0 the constant product (dotconst, K8), `a` =
+// oh_t, (width, 768) int8, 16-byte aligned; 1 or 2 K6's one-hot product in
+// int8 or bf16, `a` = t, (frames, rows, 1, width) int32 (an index outside
+// [0, 768) matches no one-hot row).  `y`, `out`: (frames, 16 rows, width)
+// uint16, 16-byte aligned, width a multiple of 8; `pat`: (m, 768) int8,
+// 16-byte aligned; (m, stride, slices) = (144, 18, 8), or for src 0
 // (m, 16, m / 16) for m in 16, 64, 128, 144, 160, 256.  One thread block
 // per SM at most as many as the occupancy calculator allows.  All pointers
 // are device pointers.  Launches on `stream` and returns cudaGetLastError().
-extern "C" int vfg_probe_dotconst(int m, int stride, int slices, int hi,
-                                  const void* y, void* out, const void* pat,
-                                  const void* oh_t, int frames, int rows,
-                                  int width, void* stream) {
-  const auto misaligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 != 0;
+extern "C" int vfg_probe_dotconst(int src, int m, int stride, int slices,
+                                  int hi, const void* y, void* out,
+                                  const void* pat, const void* a, int frames,
+                                  int rows, int width, void* stream) {
+  const auto misaligned = [](const void* p, int n) {
+    return reinterpret_cast<uintptr_t>(p) % n != 0;
   };
-  if (y == nullptr || out == nullptr || pat == nullptr || oh_t == nullptr ||
-      misaligned(y) || misaligned(out) || misaligned(pat) ||
-      misaligned(oh_t) || frames < 1 || rows < 1 || width < 8 ||
-      width % 8 || hi < 0 || hi > 65535 ||
+  if (y == nullptr || out == nullptr || pat == nullptr || a == nullptr ||
+      misaligned(y, 16) || misaligned(out, 16) || misaligned(pat, 16) ||
+      misaligned(a, src == kConst ? 16 : 4) || frames < 1 || rows < 1 ||
+      width < 8 || width % 8 || hi < 0 || hi > 65535 ||
       static_cast<long long>(frames) * rows * ((width + kCols - 1) / kCols) >=
           (1LL << 30))
     return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VFG_LAUNCH(M, STRIDE, SLICES)                                     \
-  launch<M, STRIDE, SLICES>(y, out, pat, oh_t, frames, rows, width, hi, st)
+#define VFG_LAUNCH(M, STRIDE, SLICES, SRC)                                \
+  launch<M, STRIDE, SLICES, SRC>(y, out, pat, a, frames, rows, width, hi, \
+                                 st)
   VFG_DOTCONST_DISPATCH(VFG_LAUNCH)
 #undef VFG_LAUNCH
 }
 
 // Registers a thread, dynamic shared memory bytes, local memory bytes a
 // thread and thread blocks per SM of one instance; returns a CUDA error.
-extern "C" int vfg_probe_dotconst_info(int m, int stride, int slices,
-                                       int* regs, int* smem, int* local,
-                                       int* blocks) {
-#define VFG_INFO(M, STRIDE, SLICES) \
-  info<M, STRIDE, SLICES>(regs, smem, local, blocks)
+extern "C" int vfg_probe_dotconst_info(int src, int m, int stride,
+                                       int slices, int* regs, int* smem,
+                                       int* local, int* blocks) {
+#define VFG_INFO(M, STRIDE, SLICES, SRC) \
+  info<M, STRIDE, SLICES, SRC>(regs, smem, local, blocks)
   VFG_DOTCONST_DISPATCH(VFG_INFO)
 #undef VFG_INFO
 }

@@ -156,13 +156,13 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "probe_dotconst":
         lib.vfg_probe_dotconst.restype = i
         lib.vfg_probe_dotconst.argtypes = [
-            i, i, i, i,             # m, stride, slices, hi
-            vp, vp, vp, vp,         # y, out, pat, oh_t
+            i, i, i, i, i,          # src, m, stride, slices, hi
+            vp, vp, vp, vp,         # y, out, pat, oh_t or t
             i, i, i,                # frames, rows, width
             vp]                     # stream
         lib.vfg_probe_dotconst_info.restype = i
         lib.vfg_probe_dotconst_info.argtypes = [
-            i, i, i,                # m, stride, slices
+            i, i, i, i,             # src, m, stride, slices
             ctypes.POINTER(i), ctypes.POINTER(i),  # registers, smem bytes
             ctypes.POINTER(i), ctypes.POINTER(i)]  # local bytes, blocks/SM
     elif name == "probe_relayout":

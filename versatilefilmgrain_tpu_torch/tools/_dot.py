@@ -5,15 +5,17 @@ On the TPU the grain kernel fetched its pattern windows as a one-hot matrix
 product on the matrix unit, and these probes measured what that product
 costs.  For every (frame, 16-line block row) of a uint16 plane ``y`` they
 write ``clip(y + s, 0, hi)``, where ``s`` sums row slices of 16 of a
-candidate matrix (see csrc/probe_dot.cu for every mode but dotconst, and
-csrc/probe_dotconst.cu for the dense product of dotconst and K8).  Here are
+candidate matrix (see csrc/probe_dot.cu for none, f32, gather and build,
+and csrc/probe_dotconst.cu for the persistent wgmma products: K6's int8 and
+bf16 one-hot products and the dense product of dotconst and K8).  Here are
 their shapes, their seeded inputs (drawn in the order of each JAX probe's
 ``main``), the plain torch versions of every mode, the wrapper of both
-kernels and the work schedule of the dense one.
+kernels and the work schedule of the persistent one.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 
@@ -33,6 +35,9 @@ SCALE_MS = (16, 64, 128, 144, 160, 256)
 MODES = {"none": 0, "int8": 1, "bf16": 2, "f32": 3, "gather": 4,
          "build": 5, "dotconst": 6}
 ONEHOT_MODES = ("int8", "bf16", "f32", "gather")
+# The modes of csrc/probe_dotconst.cu, by the source of its A operand: the
+# constant oh_t, or the one-hot of t built in int8 or bf16 registers.
+WGMMA_SRC = {"dotconst": 0, "int8": 1, "bf16": 2}
 # The inputs besides y that each mode reads ("oh": the constant matrix).
 READS = {"none": (), "build": ("t",), "dotconst": ("pat", "oh"),
          **{m: ("t", "pat") for m in ONEHOT_MODES}}
@@ -184,28 +189,33 @@ def plain(mode, y, t=None, pat=None, oh=None, *, clip_hi=CLIP_HI,
 
 # -- the kernels --------------------------------------------------------------
 
-DOTCONST_COLS = 64    # columns of W in one work item of the dense kernel
+DOTCONST_COLS = 64    # columns of W in one work item of the wgmma kernel
 
 
 def dotconst_schedule(frames: int, rows: int, width: int,
                       ctas: int) -> list[tuple[int, int]]:
-    """The work ranges of csrc/probe_dotconst.cu, in the kernel's own
-    arithmetic: the items are (64-column tile, strip), numbered tile first
-    (``item = tile * frames * rows + strip``), and thread block ``b`` of
-    ``ctas`` takes items ``[total b // ctas, total (b + 1) // ctas)``."""
+    """The work ranges of csrc/probe_dotconst.cu (every mode of
+    :data:`WGMMA_SRC`), in the kernel's own arithmetic: the items are
+    (64-column tile, strip), numbered tile first (``item = tile * frames *
+    rows + strip``), and thread block ``b`` of ``ctas`` takes items
+    ``[total b // ctas, total (b + 1) // ctas)``."""
     total = -(-width // DOTCONST_COLS) * frames * rows
     return [(total * b // ctas, total * (b + 1) // ctas)
             for b in range(ctas)]
 
 
-def dotconst_info(m: int, rows) -> dict:
+def dotconst_info(m: int, rows, mode: str = "dotconst") -> dict:
     """Registers, dynamic shared memory bytes, local memory bytes (stack
     and spills) a thread and thread blocks per SM of the csrc/probe_dotconst.cu
-    instance for (m, rows); builds the library on first use."""
-    _kernel_shape("dotconst", m, rows)
+    instance for (m, rows) of ``mode`` (dotconst, or K6's int8 or bf16);
+    builds the library on first use."""
+    if mode not in WGMMA_SRC:
+        raise ValueError(f"{mode} does not run csrc/probe_dotconst.cu: "
+                         f"expected one of {list(WGMMA_SRC)}")
+    _kernel_shape(mode, m, rows)
     lib = _kernels.load("probe_dotconst")
     vals = [ctypes.c_int(0) for _ in range(4)]
-    rc = lib.vfg_probe_dotconst_info(m, rows[0], rows[1],
+    rc = lib.vfg_probe_dotconst_info(WGMMA_SRC[mode], m, rows[0], rows[1],
                                      *(ctypes.byref(v) for v in vals))
     if rc != 0:
         raise RuntimeError(f"probe_dotconst info failed: CUDA error {rc}")
@@ -234,13 +244,15 @@ def dot_probe_cuda(y, t=None, pat=None, oh_t=None, *, mode: str,
     outside [0, K) matches no one-hot row, as in the plain versions);
     ``pat``: (m, K) int8, 16-byte aligned; ``oh_t``: (W, K) int8, the
     constant matrix transposed; each where :data:`READS` says ``mode`` reads
-    it.  ``rows``: slice stride and count.  Every mode but dotconst runs
+    it.  ``rows``: slice stride and count.  none, f32, gather and build run
     csrc/probe_dot.cu, where ``strips`` is the block rows per thread block
-    (the bank is staged once for them).  dotconst runs csrc/probe_dotconst.cu
-    on a persistent grid that schedules the strips itself
-    (:func:`dotconst_schedule`): it takes ``strips`` = 1 only and refuses
-    any other, and needs W a multiple of 8 and ``y``, ``oh_t`` 16-byte
-    aligned.  Adds one to ``dot_probe_cuda.launches`` per launch."""
+    (the bank is staged once for them).  dotconst, int8 and bf16
+    (:data:`WGMMA_SRC`) run csrc/probe_dotconst.cu on a persistent grid
+    that schedules the strips itself (:func:`dotconst_schedule`): they take
+    ``strips`` = 1 only and refuse any other, and need W a multiple of 8
+    and ``y`` (and dotconst's ``oh_t``) 16-byte aligned.  Adds one to
+    ``dot_probe_cuda.launches`` and to ``dot_probe_cuda.by_mode[mode]`` per
+    launch."""
     dev = y.device
     if y.dim() != 3 or y.shape[1] % 16:
         raise ValueError(f"y must be (F, 16R, W), got {tuple(y.shape)}")
@@ -264,26 +276,27 @@ def dot_probe_cuda(y, t=None, pat=None, oh_t=None, *, mode: str,
     if strips < 1 or not 0 <= clip_hi <= 0xFFFF:
         raise ValueError(f"strips {strips} or clip_hi {clip_hi} out of "
                          f"range")
-    if mode == "dotconst":
+    if mode in WGMMA_SRC:
         if strips != 1:
-            raise ValueError(f"strips {strips}: dotconst schedules its "
+            raise ValueError(f"strips {strips}: {mode} schedules its "
                              f"strips on a persistent grid; pass 1")
         if Wy % 8:
-            raise ValueError(f"dotconst needs a width that is a multiple "
+            raise ValueError(f"{mode} needs a width that is a multiple "
                              f"of 8, got {Wy}")
         for name, x in (("y", y), ("oh_t", oh_t)):
-            if x.data_ptr() % 16:
+            if x is not None and x.data_ptr() % 16:
                 raise ValueError(f"{name} must be 16-byte aligned")
     if dev.type != "cuda":
         raise ValueError(f"dot_probe_cuda needs CUDA tensors, got {dev}")
     out = torch.empty_like(y)
     stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    if mode == "dotconst":
+    if mode in WGMMA_SRC:
         lib = _kernels.load("probe_dotconst")
-        rc = lib.vfg_probe_dotconst(m, rows[0], rows[1], clip_hi,
-                                    y.data_ptr(), out.data_ptr(),
-                                    pat.data_ptr(), oh_t.data_ptr(), Fy, R,
-                                    Wy, stream)
+        a = oh_t if mode == "dotconst" else t
+        rc = lib.vfg_probe_dotconst(WGMMA_SRC[mode], m, rows[0], rows[1],
+                                    clip_hi, y.data_ptr(), out.data_ptr(),
+                                    pat.data_ptr(), a.data_ptr(), Fy, R, Wy,
+                                    stream)
     else:
         lib = _kernels.load("probe_dot")
         rc = lib.vfg_probe_dot(MODES[mode], m, rows[0], rows[1], clip_hi,
@@ -294,10 +307,12 @@ def dot_probe_cuda(y, t=None, pat=None, oh_t=None, *, mode: str,
     if rc != 0:
         raise RuntimeError(f"{mode} kernel launch failed: CUDA error {rc}")
     dot_probe_cuda.launches += 1
+    dot_probe_cuda.by_mode[mode] += 1
     return out
 
 
 dot_probe_cuda.launches = 0
+dot_probe_cuda.by_mode = collections.Counter()
 
 
 def make_step(mode, t=None, pat=None, oh=None, *, clip_hi=CLIP_HI,

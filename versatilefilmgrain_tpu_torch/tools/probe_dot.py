@@ -2,15 +2,16 @@
 
 Port of the JAX package's tools/probe_dot.py.  For every (frame, block row)
 of an 8-frame 3840x2160 uint16 plane, the product pat(144 x 768 int8) @
-onehot(768 x 3840) on the tensor cores (csrc/probe_dot.cu, mma.sync) in
-int8, bf16 and TF32 (mode f32), its 8 row slices summed into the strip:
-what the TPU grain kernel's window fetch cost.  Beside them "none" (the
-strip copy alone) and "gather", the Hopper answer: the same sums read
-straight from the pattern bank in shared memory, as K1 reads its windows.
-int8 and gather are also timed with 9 block rows per thread block (the bank
-staged once for 9), which shows what staging the 110,592-byte bank costs.
-Each mode is held exactly against its plain version; bf16 == int8 and
-gather == int8.
+onehot(768 x 3840) on the tensor cores, its 8 row slices summed into the
+strip: what the TPU grain kernel's window fetch cost.  int8 and bf16 run
+csrc/probe_dotconst.cu (a persistent wgmma kernel that builds the one-hot
+in registers and stages the bank once per SM), TF32 (mode f32)
+csrc/probe_dot.cu (mma.sync).  Beside them "none" (the strip copy alone)
+and "gather", the Hopper answer: the same sums read straight from the
+pattern bank in shared memory, as K1 reads its windows.  gather is also
+timed with 9 block rows per thread block (the bank staged once for 9),
+which shows what staging the 110,592-byte bank costs.  Each mode is held
+exactly against its plain version; bf16 == int8 and gather == int8.
 
 Run on the card from the repo root:
   python -m versatilefilmgrain_tpu_torch.tools.probe_dot
@@ -39,10 +40,9 @@ def run(y, t, pat) -> dict:
         cases[mode] = (_dot.make_step(mode, t, pat),
                        _dot.none_plain(y) if mode == "none" else want,
                        _dot.bound(mode, y, t, pat))
-    for mode in ("int8", "gather"):
-        cases[f"{mode} x{STRIPS}"] = (
-            _dot.make_step(mode, t, pat, strips=STRIPS), want,
-            _dot.bound(mode, y, t, pat))
+    cases[f"gather x{STRIPS}"] = (
+        _dot.make_step("gather", t, pat, strips=STRIPS), want,
+        _dot.bound("gather", y, t, pat))
     print("probe_dot (K6): pat(144x768) @ onehot(768xW) per block row, 8 "
           "row slices summed, clip 4092", flush=True)
     res = hz.run_modes(cases, y)

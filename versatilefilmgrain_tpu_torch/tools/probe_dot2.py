@@ -1,9 +1,11 @@
 """Building the one-hot against multiplying by it (K7) on the card.
 
 Port of the JAX package's tools/probe_dot2.py.  Modes of csrc/probe_dot.cu
-(dotconst: csrc/probe_dotconst.cu) at an 8-frame 3840x2160 uint16 plane:
+(int8 and dotconst: csrc/probe_dotconst.cu, a persistent wgmma kernel) at
+an 8-frame 3840x2160 uint16 plane:
   none      the strip copy alone;
-  int8      K6's one-hot product on the tensor cores;
+  int8      K6's one-hot product on the tensor cores, the same kernel
+            instance as K6's int8 mode;
   build     the int8 mode's one-hot fragments built over every K step, no
             product: the 8 row slices 96q .. 96q + 15 summed, as the TPU
             build mode does (what the compiler keeps of the build is in the
