@@ -59,18 +59,20 @@ Phases, one result line each:
                  the plain version at 4K and on phase 4's 10-bit cases;
                  K4 and K1 timed in turns; the probe's run_config for the
                  three configs (launches counted, bit-exact);
- 17. dot      -- every mode of the one-hot dot probe K6 (int8 and bf16 on
-                 the tensor cores in csrc/probe_dotconst.cu, a persistent
-                 wgmma kernel that builds the one-hot in registers; none,
-                 f32 (TF32) and gather in csrc/probe_dot.cu) == the plain
-                 version, exact, at 2 frames of 160x32 (a width that is not
-                 a multiple of 128), then the probe's run at 3840x2160, 8
-                 frames (launches counted, every mode exact, bf16 == int8 ==
-                 gather); the plain version and one library call per mode
-                 timed (torch._int_mm, bf16 and TF32 torch.matmul,
-                 pat[:, t]), int8 and bf16 against theirs; the int8 and bf16
+ 17. dot      -- every mode of the one-hot dot probe K6 (int8, bf16 and
+                 f32 (TF32, its bank in two row groups) on the tensor cores
+                 in csrc/probe_dotconst.cu, a persistent wgmma kernel that
+                 builds the one-hot in registers; none and gather in
+                 csrc/probe_dot.cu) == the plain version, exact, at 2
+                 frames of 160x32 (a width that is not a multiple of 128),
+                 then the probe's run at 3840x2160, 8 frames (launches
+                 counted, every mode exact, bf16 == f32 == int8 == gather);
+                 the plain version and one library call per mode timed
+                 (torch._int_mm, bf16 and TF32 torch.matmul, pat[:, t]),
+                 int8, bf16 and TF32 against theirs; the int8, bf16 and f32
                  instances' registers, shared memory, local memory (none
-                 allowed) and blocks per SM, and their SASS counts;
+                 allowed) and blocks per SM, and their SASS counts (TF32's
+                 HGMMA and no HMMA checked);
  18. dot2     -- the same for K7's modes (none, int8, build, dotconst; the
                  dense product is csrc/probe_dotconst.cu, a persistent
                  wgmma kernel), the build instance's SASS counts, and the
@@ -97,8 +99,8 @@ Phases, one result line each:
                  --device cuda under --engine auto (K1) and --engine pallas
                  (K3), each against --device cpu: equal exit codes and
                  output bytes; K1 and K3 launches counted.
-Then one JSON line describing the ten kernels (K6 in two rows, int8 and
-bf16), and as the last line
+Then one JSON line describing the ten kernels (K6 in three rows, int8, bf16
+and f32), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
 and prints no result.  It needs a CUDA device and the rest of the repository.
 """
@@ -183,23 +185,31 @@ def int_mm_ms(a, pat):
     return cuda_ms(lambda: torch._int_mm(a, b), 5, warmup=1)
 
 
-def sass_counts(kernels, lib, function,
-                keys=("IMMA", "ISETP", "SEL", "SHF", "IADD3", "LDG", "LDS",
-                      "STS", "STG")):
-    """Counts of the SASS instructions ``keys`` of the kernel instance whose
-    mangled name holds ``function``, in the built library ``lib``
-    (cuobjdump)."""
+def sass_ops(kernels, lib, function):
+    """The SASS opcodes of the kernel instance whose mangled name holds
+    ``function``, in the built library ``lib`` (cuobjdump); None without
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        return "cuobjdump not found"
+        return None
     so = kernels._paths(lib)[1]
     sass = subprocess.run([tool, "-sass", so], capture_output=True,
                           text=True, check=True).stdout
     body = next((f for f in sass.split("Function : ")[1:]
                  if function in f.split("\n", 1)[0]), None)
     check(body is not None, f"no SASS for {function} in {so}")
-    ops = re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
-                     body)
+    return re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                      body)
+
+
+def sass_counts(kernels, lib, function,
+                keys=("IMMA", "ISETP", "SEL", "SHF", "IADD3", "LDG", "LDS",
+                      "STS", "STG"), ops=None):
+    """Counts of the SASS instructions ``keys`` of that instance (``ops``,
+    or :func:`sass_ops` of it)."""
+    ops = ops or sass_ops(kernels, lib, function)
+    if ops is None:
+        return "cuobjdump not found"
     return f"{len(ops)} instructions; " + ", ".join(
         f"{k} {ops.count(k)}" for k in keys)
 
@@ -898,8 +908,9 @@ def main() -> int:
           and all(k6["equal"].values()), f"the K6 run at {W}x{H} found a "
           f"mode differing from its plain version, or from int8")
     k6_want = _dot.onehot_plain(y, t, pat)
+    wgmma6 = ("int8", "bf16", "f32")
     k6_err = {m: max_err(_dot.make_step(m, t, pat)(y)[0], k6_want)
-              for m in ("int8", "bf16")}
+              for m in wgmma6}
     plain6 = {"onehot": cuda_ms(lambda: _dot.onehot_plain(y, t, pat), 3,
                                 warmup=1),
               "none": cuda_ms(lambda: _dot.none_plain(y), 10)}
@@ -924,29 +935,34 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase("dot", f"K6 at {W}x{H}, {F} frames: {k6_launches} launches ("
           + ", ".join(f"{m} {n}" for m, n in k6_by_mode.items()) + "), every "
-          f"mode exact, bf16 == int8 == gather; plain {plain6['onehot']:.3f} "
+          f"mode exact, bf16 == f32 == int8 == gather; plain "
+          f"{plain6['onehot']:.3f} "
           f"ms (one-hot product), {plain6['none']:.4f} ms (none); library "
           f"(product only): torch._int_mm {lib6['int8']:.4f} ms, bf16 "
           f"matmul {lib6['bf16']:.4f} ms, TF32 matmul (allow_tf32 True) "
           f"{lib6['f32']:.4f} ms, pat[:, t] {lib6['gather']:.4f} ms; card "
           f"{card}")
-    phase("dot", "int8 and bf16 (csrc/probe_dotconst.cu) kernel / library "
-          "ms, fraction of the bound: " + ", ".join(
+    phase("dot", "int8, bf16 and TF32 (f32) (csrc/probe_dotconst.cu) "
+          "kernel / library ms, fraction of the bound: " + ", ".join(
               f"{m} {k6[m]['ms']:.4f} / {lib6[m]:.4f}, "
               f"{k6[m]['bound_ms'] / k6[m]['ms']:.3f}, faster "
-              f"{k6[m]['ms'] < lib6[m]}" for m in ("int8", "bf16")))
-    for m in ("int8", "bf16"):
+              f"{k6[m]['ms'] < lib6[m]}" for m in wgmma6))
+    for m in wgmma6:
         info = _dot.dotconst_info(_dot.M, _dot.ROWS_K6, m)
         check(info["local_bytes"] == 0, f"the K6 {m} instance uses local "
               f"memory: {info}")
+        inst = f"dotconst_kernelILi144ELi18ELi8ELi{_dot.WGMMA_SRC[m]}E"
+        ops = sass_ops(_kernels, "probe_dotconst", inst)
+        if m == "f32" and ops is not None:
+            check(ops.count("HGMMA") > 0 and ops.count("HMMA") == 0,
+                  "the K6 f32 instance does not run on wgmma alone")
         phase("dot", "{} instance, registers / dynamic shared memory "
               "bytes / local memory bytes per thread / thread blocks per "
               "SM: {registers} / {smem} / {local_bytes} / "
               "{blocks_per_sm}; ".format(m, **info) + sass_counts(
-                  _kernels, "probe_dotconst",
-                  f"dotconst_kernelILi144ELi18ELi8ELi{_dot.WGMMA_SRC[m]}E",
-                  keys=("IGMMA", "HGMMA", "IMMA", "LDL", "STL", "SHFL",
-                        "LDG")))
+                  _kernels, "probe_dotconst", inst,
+                  keys=("IGMMA", "HGMMA", "HMMA", "IMMA", "LDL", "STL",
+                        "SHFL", "LDG"), ops=ops))
     del y, t, pat, k6_want
 
     # 18. build against multiply (K7)
@@ -1190,10 +1206,10 @@ def main() -> int:
         probe_row("probe_dot", "probe_dotconst.cu", "tools/probe_dot.py:38",
                   "int8", k6, k6_by_mode["int8"], k6_err["int8"],
                   plain6["onehot"], lib6["int8"]),
-        {**probe_row("probe_dot", "probe_dotconst.cu",
-                     "tools/probe_dot.py:38", "bf16", k6, k6_by_mode["bf16"],
-                     k6_err["bf16"], plain6["onehot"], lib6["bf16"]),
-         "name": "probe_dot_bf16"},
+        *({**probe_row("probe_dot", "probe_dotconst.cu",
+                       "tools/probe_dot.py:38", m, k6, k6_by_mode[m],
+                       k6_err[m], plain6["onehot"], lib6[m]),
+           "name": f"probe_dot_{m}"} for m in ("bf16", "f32")),
         probe_row("probe_dot2", "probe_dotconst.cu",
                   "tools/probe_dot2.py:38", "dotconst", k7, k7_launches,
                   k7_err, plain7["dotconst"], lib7),

@@ -1,8 +1,8 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
 K1 (lattice and lane-word input, shard boot), K2, K3, the two probes of K1
 (K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu), the one-hot dot probes
-(K6-K8, csrc/probe_dot.cu and, for K6's int8 and bf16 products and the dense
-product, csrc/probe_dotconst.cu) and the relayout probes (K9, K10,
+(K6-K8, csrc/probe_dot.cu and, for K6's int8, bf16 and TF32 products and the
+dense product, csrc/probe_dotconst.cu) and the relayout probes (K9, K10,
 csrc/probe_relayout.cu).
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
@@ -389,10 +389,11 @@ def test_pipe_matches_k1(kind, cuda_device):
                                   "build", "dotconst"])
 def test_dot_probe_matches_plain(mode, width, cuda_device):
     """Every mode of the dot probe kernels (csrc/probe_dot.cu, K6 and K7;
-    int8, bf16 and dotconst csrc/probe_dotconst.cu) == its plain version, at
-    a width that is a multiple of 128 and one that is not; one and two block
-    rows per thread block, except the modes of csrc/probe_dotconst.cu, whose
-    persistent grid schedules the strips and refuses strips 2."""
+    int8, bf16, f32 and dotconst csrc/probe_dotconst.cu) == its plain
+    version, at a width that is a multiple of 128 and one that is not; one
+    and two block rows per thread block, except the modes of
+    csrc/probe_dotconst.cu, whose persistent grid schedules the strips and
+    refuses strips 2."""
     from versatilefilmgrain_tpu_torch.tools import _dot
     y, t, pat, constoh = _dot.dot2_inputs(13, 3, 48, width,
                                           device=cuda_device)
@@ -493,7 +494,7 @@ def test_dotconst_launches_repeat_exactly(m, rows, cuda_device):
     assert _dot.dotconst_info(m, rows)["local_bytes"] == 0
 
 
-ONEHOT_WGMMA_MODES = ["int8", "bf16"]
+ONEHOT_WGMMA_MODES = ["int8", "bf16", "f32"]
 
 
 def _onehot_inputs(frames, height, width, seed, dev):
@@ -511,12 +512,13 @@ def _onehot_inputs(frames, height, width, seed, dev):
 @pytest.mark.parametrize("width", [64, 160, 200, 256, 296])
 @pytest.mark.parametrize("mode", ONEHOT_WGMMA_MODES)
 def test_onehot_wgmma_matches_plain(mode, width, cuda_device):
-    """K6's int8 and bf16 products (csrc/probe_dotconst.cu, the one-hot
-    built in registers) == the plain one-hot product, at widths of whole
-    and partial 64-column tiles, on a plane of 4 frames x 50 block rows; y
-    at 0 and at the clip limit on alternate lines, so both clip ends are
-    hit, and t holding indices outside [0, 768).  At width 296 thread
-    blocks' work ranges cross a column-tile boundary on a 132-SM card."""
+    """K6's int8, bf16 and f32 (TF32, in two row groups) products
+    (csrc/probe_dotconst.cu, the one-hot built in registers) == the plain
+    one-hot product, at widths of whole and partial 64-column tiles, on a
+    plane of 4 frames x 50 block rows; y at 0 and at the clip limit on
+    alternate lines, so both clip ends are hit, and t holding indices
+    outside [0, 768).  At width 296 thread blocks' work ranges cross a
+    column-tile boundary on a 132-SM card."""
     from versatilefilmgrain_tpu_torch.tools import _dot
     frames, R = 4, 50
     y, t, pat = _onehot_inputs(frames, 16 * R, width, 37, cuda_device)
@@ -542,8 +544,8 @@ def test_onehot_wgmma_matches_plain(mode, width, cuda_device):
 
 @pytest.mark.parametrize("mode", ONEHOT_WGMMA_MODES)
 def test_onehot_wgmma_launches_repeat_exactly(mode, cuda_device):
-    """Two launches of K6's int8 or bf16 product give identical bytes (the
-    fold has no atomics), each adds one to the launch counter, and the
+    """Two launches of K6's int8, bf16 or f32 product give identical bytes
+    (the fold has no atomics), each adds one to the launch counter, and the
     instance spills nothing."""
     from versatilefilmgrain_tpu_torch.tools import _dot
     y, t, pat = _onehot_inputs(3, 48, 200, 41, cuda_device)

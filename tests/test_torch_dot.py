@@ -8,10 +8,10 @@ own ``kernel`` runs in the BlockSpecs of their ``main`` with
 multiple of 128).  On CPU tensors the port's probe steps run their plain
 versions, which must equal the JAX kernels exactly (tolerance 0: every
 value is an integer).  The kernels themselves (csrc/probe_dot.cu, and
-csrc/probe_dotconst.cu for the dense product) run only on the card:
+csrc/probe_dotconst.cu for the tensor-core products) run only on the card:
 tests/test_torch_cuda.py and chip_smoke.py hold them against the same plain
-versions.  Here the dense kernel's wrapper checks and its work schedule are
-tested too.
+versions.  Here the persistent kernel's wrapper checks, its work schedule
+and the row groups of its TF32 instance are tested too.
 """
 
 import functools
@@ -333,11 +333,12 @@ def test_dotconst_wrapper_checks(case, match):
     ("strips 2", "schedules its strips"), ("width 164", "multiple of 8"),
     ("y misaligned", "y must be 16-byte aligned"),
     ("cpu", "needs CUDA tensors")])
-@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("mode", ["int8", "bf16", "f32"])
 def test_onehot_wgmma_wrapper_checks(mode, case, match):
-    """K6's int8 and bf16 products run on csrc/probe_dotconst.cu's
-    persistent grid: their wrapper takes strips 1 only, widths of 8, a
-    16-byte aligned y, and CUDA tensors; nothing is launched."""
+    """K6's int8, bf16 and f32 (TF32) products run on
+    csrc/probe_dotconst.cu's persistent grid: their wrapper takes strips 1
+    only, widths of 8, a 16-byte aligned y, and CUDA tensors; nothing is
+    launched."""
     width = 164 if case == "width 164" else 160
     y, t, pat = _dot.dot_inputs(1, FR, HT, width)
     kw = {}
@@ -352,9 +353,54 @@ def test_onehot_wgmma_wrapper_checks(mode, case, match):
     assert _dot.dot_probe_cuda.launches == launches
 
 
-@pytest.mark.parametrize("mode", ["none", "f32", "gather", "build", "int4"])
+@pytest.mark.parametrize("mode", ["none", "gather", "build", "int4"])
 def test_wgmma_info_refuses_other_modes(mode):
-    """Only dotconst, int8 and bf16 have a csrc/probe_dotconst.cu instance
-    to report on; the refusal comes before any build."""
+    """Only dotconst, int8, bf16 and f32 have a csrc/probe_dotconst.cu
+    instance to report on; the refusal comes before any build."""
     with pytest.raises(ValueError, match="does not run csrc/probe_dotconst"):
         _dot.dotconst_info(M, _dot.ROWS_K6, mode)
+
+
+def test_tf32_row_groups_cover_whole_lines():
+    """The TF32 instance's two banks hold every pattern row exactly once,
+    72 each, and each line's 8 slices lie in one bank: group g's row
+    [i', p] is slice p of line 9 g + i' (lines 16 and 17, past the strip,
+    are group 1's i' 7 and 8)."""
+    groups = _dot.tf32_row_groups()
+    assert groups.shape == (2, 9, 8)
+    assert sorted(groups.flatten().tolist()) == list(range(M))
+    stride, slices = _dot.ROWS_K6
+    for line in range(stride):
+        g, i = divmod(line, 9)
+        assert groups[g, i].tolist() == [stride * p + line
+                                         for p in range(slices)]
+
+
+@pytest.mark.parametrize("seed,width", [(0, 64), (1, 160), (2, 200),
+                                        (3, 256), (4, 296), (5, 8)])
+def test_tf32_row_groups_fold_to_onehot_plain(seed, width):
+    """The TF32 instance's arithmetic in plain torch: each group's float32
+    product of its 72 staged rows with the one-hot, summed line by line over
+    the 8 slices of each bank row's line, gives every line of s once; with
+    y added and clipped that equals ``onehot_plain`` exactly, at indices
+    outside [0, 768) too (tolerance 0: every value is an integer)."""
+    frames, R = 2, 3
+    y, t, pat = _dot.dot_inputs(seed, frames, 16 * R, width)
+    rng = np.random.default_rng(seed)
+    far = torch.from_numpy(rng.random(t.shape) < 0.1)
+    t[far] = torch.from_numpy(rng.integers(-3000, 5000, t.shape,
+                                           np.int32))[far]
+    t[0, 0, 0, :2] = torch.tensor([-1, K], dtype=torch.int32)
+    s = torch.full((frames, R, 16, width), -(1 << 20), dtype=torch.int32)
+    onehot = (torch.arange(K).view(1, 1, K, 1) == t).to(torch.float32)
+    for g, rows in enumerate(_dot.tf32_row_groups()):
+        bank = pat[rows.flatten()].to(torch.float32)      # (72, K)
+        cand = torch.matmul(bank, onehot)                 # (F, R, 72, W)
+        lines = cand.view(frames, R, 9, 8, width).sum(3).to(torch.int32)
+        for i in range(9):
+            if 9 * g + i < 16:
+                s[:, :, 9 * g + i] = lines[:, :, i]
+    assert bool((s > -(1 << 20)).all())   # every line written
+    got = torch.clamp(y.view(frames, R, 16, width).to(torch.int32) + s, 0,
+                      _dot.CLIP_HI).to(torch.uint16).view(y.shape)
+    assert torch.equal(got, _dot.onehot_plain(y, t, pat))

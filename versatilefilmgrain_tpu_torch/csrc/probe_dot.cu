@@ -2,17 +2,17 @@
 // Hopper (sm_90a): one source, one template instance per mode.
 //
 // Replaces two TPU kernels of tools/ (each a `kernel` run by its `main`):
-//   K6 tools/probe_dot.py:38       modes none, f32
+//   K6 tools/probe_dot.py:38       mode none (and gather, below)
 //   K7 tools/probe_dot2.py:38      modes none, build
-// (K6's int8 and bf16 modes, which are K7's int8 mode too, and K7's
-// dotconst mode and K8, the dense product, are persistent wgmma kernels in
-// csrc/probe_dotconst.cu.)
+// (K6's int8, bf16 and f32 (TF32) modes, of which int8 is K7's int8 mode
+// too, and K7's dotconst mode and K8, the dense product, are persistent
+// wgmma kernels in csrc/probe_dotconst.cu.)
 // For every (frame f, 16-line block row r) of a (F, 16R, W) uint16 plane y
 // they compute, with `hi` = 4092,
 //   out[f, 16r + i, w] = clip(y[f, 16r + i, w] + s[i, w], 0, hi),  i < 16,
 //   s[i, w] = sum over slices p < 8 of cand[18 p + i, w],
 // where cand is
-//   f32 (and gather): pat(144 x 768 int8) @ onehot(768 x W),
+//   gather:       pat(144 x 768 int8) @ onehot(768 x W),
 //                 onehot[k, w] = (k == t[f, r, w]), so cand[m, w] = pat[m, t];
 //   build:        no product: s8[j, w] = sum_{q<8} onehot[96 q + j, w],
 //                 s[i] = sum_{p<8} s8[(i + 2p) mod 16] (the TPU build mode's
@@ -23,28 +23,13 @@
 //
 // What bounds it on this card, per 8-frame 3840x2160 step (computed from the
 // H100 SXM data sheet, not measured): y in and out is 265.4 MB and t 16.6 MB,
-// 0.084 ms at 3.35 TB/s (none 0.079 ms); the 144-row product is 917.3 G
-// operations, f32 (TF32) at 495 TFLOP/s 1.853 ms, so f32 is bound by
-// operations.  gather, build and none are bound by bytes.
+// 0.084 ms at 3.35 TB/s (none 0.079 ms): every mode here is bound by bytes.
 //
 // Design.  A thread block of 8 warps owns 128 columns of `strips` block rows
-// of one frame (grid: column tiles x row groups x frames); each warp owns 16
-// columns, two n-tiles of 8.  The f32 product runs on the tensor cores with
-// mma.sync (m16n8k8 tf32 -> f32), every K step for all 9 m-tiles, as the
-// TPU's dot does; skipping the steps where the one-hot is zero is the
-// gather's job.  A (the pattern) comes from shared memory: the f32 bank
-// (442 KB) does not fit, so 64 columns of K are converted from int8 and
-// staged at a time (the gather stages the int8 bank, 144 x 768, 110,592
-// bytes, whole, once per thread block).  Rows are padded by 16 bytes so
-// that a warp's A-fragment loads hit 32 banks.  B (the one-hot) is built in
-// registers from the thread's t value, with no memory access: a thread's B
-// column is one w, and each register holds 1 (tf32) row of it, so the
-// fragment is one compare per register.  TF32 is exact here: every input
-// is an integer of at most 8 bits, and every sum is one entry of pat.
-// The slices start every 18 rows and cross m-tile boundaries, so each
-// accumulator is added (shared-memory atomics) into a 16 x 128 int32 tile of
-// s, then the block writes clip(y + s) with neighbouring threads on
-// neighbouring columns.  Every mma is `asm volatile`, so none is dropped.
+// of one frame (grid: column tiles x row groups x frames).  The gather stages
+// the int8 bank, 144 x 768, 110,592 bytes, whole, once per thread block, in
+// rows padded by 16 bytes; a thread takes one column and 8 of the 16 lines,
+// and skips the bank where its index matches no row.
 //
 // build: an int8 m16n8k32 B-fragment build over every K step, with the mma
 // replaced by the byte sums of the rows the output reads (K steps 3q hold
@@ -74,15 +59,13 @@ constexpr int kThreads = 256;           // 8 warps
 constexpr int kCols = 128;              // columns per thread block
 constexpr int kSBytes = 16 * kCols * 4; // the int32 tile of s
 constexpr int kRowInt8 = kK + 16;       // padded bank row, bytes
-constexpr int kRowChunk = 256 + 16;     // padded f32 chunk row, bytes
 
-// Mode numbers as the wrapper passes them; 1 (int8) and 2 (bf16) run in
-// csrc/probe_dotconst.cu.
-enum Mode { kNone = 0, kF32 = 3, kGather = 4, kBuild = 5 };
+// Mode numbers as the wrapper passes them; 1 (int8), 2 (bf16) and 3 (f32)
+// run in csrc/probe_dotconst.cu.
+enum Mode { kNone = 0, kGather = 4, kBuild = 5 };
 
 __host__ __device__ constexpr int smem_bytes(int mode) {
-  return kSBytes + (mode == kGather ? kM * kRowInt8
-                    : mode == kF32 ? kM * kRowChunk : 0);
+  return kSBytes + (mode == kGather ? kM * kRowInt8 : 0);
 }
 
 // The (m, 768) int8 bank into padded shared rows, 16 bytes a thread.
@@ -96,35 +79,6 @@ __device__ __forceinline__ void stage_int8(unsigned char* bank,
   }
 }
 
-__device__ __forceinline__ int sbyte(unsigned v, int j) {
-  return static_cast<int8_t>((v >> (8 * j)) & 0xffu);
-}
-
-// Columns kc0 .. kc0 + 63 of the 144-row int8 bank, converted to f32, into
-// padded shared rows.
-__device__ __forceinline__ void stage_chunk(unsigned char* bank,
-                                            const int8_t* pat, int kc0) {
-  constexpr int kWords = 64 / 4;  // per row
-  for (int i = threadIdx.x; i < 144 * kWords; i += kThreads) {
-    const int row = i / kWords, wd = i - row * kWords;
-    const unsigned v = __ldg(reinterpret_cast<const unsigned*>(
-        pat + row * kK + kc0) + wd);
-    *reinterpret_cast<float4*>(bank + row * kRowChunk + wd * 16) =
-        make_float4(float(sbyte(v, 0)), float(sbyte(v, 1)),
-                    float(sbyte(v, 2)), float(sbyte(v, 3)));
-  }
-}
-
-__device__ __forceinline__ void mma_tf32(float (&c)[4],
-                                         const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // One-hot B registers of an int8 m16n8k32 step at K row k0 (build): the
 // thread's rows are k0 + 4 tig + (0..3) and k0 + 16 + 4 tig + (0..3), one
 // byte each.
@@ -135,9 +89,9 @@ __device__ __forceinline__ void onehot_s8(int tv, int k0, int tig,
   b1 = unsigned(d - 16) < 4u ? 1u << (8 * (d - 16)) : 0u;
 }
 
-// out = clip(y + s, 0, hi) over one strip's 16 x kCols tile.  kSum: 0 no s,
-// 1 the tile s[i][c], 2 build's s[i] = sum_p s8[(i + 2p) mod 16].
-template <int kSum>
+// out = clip(y + s, 0, hi) over one strip's 16 x kCols tile: s = 0, or
+// with kSum build's s[i] = sum_p s8[(i + 2p) mod 16].
+template <bool kSum>
 __device__ __forceinline__ void store_strip(const unsigned short* ys,
                                             unsigned short* os, const int* s,
                                             int col0, int width, int hi) {
@@ -146,8 +100,7 @@ __device__ __forceinline__ void store_strip(const unsigned short* ys,
     if (col >= width) continue;
     const size_t off = size_t(i) * width + col;
     int v = __ldg(ys + off);
-    if constexpr (kSum == 1) v += s[idx];
-    if constexpr (kSum == 2) {
+    if constexpr (kSum) {
 #pragma unroll
       for (int p = 0; p < 8; ++p) v += s[((i + 2 * p) & 15) * kCols + c];
     }
@@ -178,7 +131,7 @@ dot_kernel(const unsigned short* __restrict__ y,
     unsigned short* os = out + strip * 16 * width;
 
     if constexpr (kMode == kNone) {
-      store_strip<0>(ys, os, s, col0, width, hi);
+      store_strip<false>(ys, os, s, col0, width, hi);
     } else if constexpr (kMode == kGather) {
       // thread: one column, 8 of the 16 lines
       const int c = threadIdx.x % kCols, half = threadIdx.x / kCols;
@@ -217,74 +170,7 @@ dot_kernel(const unsigned short* __restrict__ y,
           s[(4 * tig + e) * kCols + cl] = (s8 >> (8 * e)) & 0xffu;
       }
       __syncthreads();
-      store_strip<2>(ys, os, s, col0, width, hi);
-      __syncthreads();
-    } else {
-      constexpr int kMT = kM / 16;
-      float acc[kMT][2][4];
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[mt][nt][j] = 0.f;
-      int tv[2];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int col = col0 + warp * 16 + nt * 8 + g;
-        tv[nt] = col < width ? __ldg(t + strip * width + col) : -1;
-      }
-      for (int i = threadIdx.x; i < 16 * kCols; i += kThreads) s[i] = 0;
-
-      constexpr int kChunk = 64;  // K per stage
-      const unsigned one = 0x3F800000u;
-      for (int kc0 = 0; kc0 < kK; kc0 += kChunk) {
-        __syncthreads();  // the previous chunk is consumed
-        stage_chunk(bank, pat, kc0);
-        __syncthreads();
-        // the thread's columns: tig, 4 tig bytes
-        const unsigned char* arow = bank + g * kRowChunk + 4 * tig;
-#pragma unroll 1
-        for (int kk = 0; kk < kChunk; kk += 8) {
-          unsigned b[2][2];
-#pragma unroll
-          for (int nt = 0; nt < 2; ++nt) {
-            // rows kc0 + kk + tig and + 4
-            const int d = tv[nt] - kc0 - kk - tig;
-            b[nt][0] = d == 0 ? one : 0u;
-            b[nt][1] = d == 4 ? one : 0u;
-          }
-#pragma unroll
-          for (int mt = 0; mt < kMT; ++mt) {
-            const unsigned char* ap = arow + mt * 16 * kRowChunk + kk * 4;
-            // second register pair: 4 columns on
-            const unsigned a[4] = {
-                *reinterpret_cast<const unsigned*>(ap),
-                *reinterpret_cast<const unsigned*>(ap + 8 * kRowChunk),
-                *reinterpret_cast<const unsigned*>(ap + 16),
-                *reinterpret_cast<const unsigned*>(ap + 8 * kRowChunk + 16)};
-            mma_tf32(acc[mt][0], a, b[0][0], b[0][1]);
-            mma_tf32(acc[mt][1], a, b[1][0], b[1][1]);
-          }
-        }
-      }
-      // fold the slice rows into s: accumulator j holds row g (+8 for
-      // j >= 2), column 2 tig + (j & 1) of its m-tile and n-tile
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = mt * 16 + g + (j >= 2 ? 8 : 0);
-          const int p = row / kStride, i = row - p * kStride;
-          if (p < kSlices && i < 16) {
-#pragma unroll
-            for (int nt = 0; nt < 2; ++nt)
-              atomicAdd(s + i * kCols + warp * 16 + nt * 8 + 2 * tig +
-                            (j & 1), __float2int_rn(acc[mt][nt][j]));
-          }
-        }
-      __syncthreads();
-      store_strip<1>(ys, os, s, col0, width, hi);
+      store_strip<true>(ys, os, s, col0, width, hi);
       __syncthreads();
     }
   }
@@ -315,11 +201,11 @@ int launch(const void* y, void* out, const void* t, const void* pat,
 }  // namespace
 
 // One probe step.  `y`, `out`: (frames, 16 rows, width) uint16; `t`:
-// (frames, rows, 1, width) int32 (f32, gather, build; an index outside
-// [0, 768) matches no one-hot row); `pat`: (144, 768) int8, 16-byte aligned
-// (f32, gather); (m, stride, slices) = (144, 18, 8).  Modes: 0 none, 3 f32,
-// 4 gather, 5 build (1 int8 and 2 bf16 run in csrc/probe_dotconst.cu and
-// are refused here).  A thread block covers 128 columns of `strips` block
+// (frames, rows, 1, width) int32 (gather, build; an index outside [0, 768)
+// matches no one-hot row); `pat`: (144, 768) int8, 16-byte aligned
+// (gather); (m, stride, slices) = (144, 18, 8).  Modes: 0 none, 4 gather,
+// 5 build (1 int8, 2 bf16 and 3 f32 run in csrc/probe_dotconst.cu and are
+// refused here).  A thread block covers 128 columns of `strips` block
 // rows.  All pointers are device pointers.  Launches on `stream` and
 // returns cudaGetLastError().
 extern "C" int vfg_probe_dot(int mode, int m, int stride, int slices, int hi,
@@ -329,7 +215,7 @@ extern "C" int vfg_probe_dot(int mode, int m, int stride, int slices, int hi,
   if (y == nullptr || out == nullptr || frames < 1 || frames > 65535 ||
       rows < 1 || width < 1 || strips < 1 || hi < 0 || hi > 65535)
     return int(cudaErrorInvalidValue);
-  const bool needs_t = mode >= kF32 && mode <= kBuild;
+  const bool needs_t = mode == kGather || mode == kBuild;
   const bool needs_pat = mode != kNone && mode != kBuild;
   if ((needs_t && t == nullptr) || (needs_pat && pat == nullptr) ||
       (needs_pat && reinterpret_cast<uintptr_t>(pat) % 16) || m != kM ||
@@ -340,7 +226,6 @@ extern "C" int vfg_probe_dot(int mode, int m, int stride, int slices, int hi,
   launch<MODE>(y, out, t, pat, frames, rows, width, strips, hi, st)
   switch (mode) {
     case kNone: return VFG_DOT(kNone);
-    case kF32: return VFG_DOT(kF32);
     case kGather: return VFG_DOT(kGather);
     case kBuild: return VFG_DOT(kBuild);
     default: return int(cudaErrorInvalidValue);

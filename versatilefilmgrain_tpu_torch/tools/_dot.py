@@ -5,12 +5,13 @@ On the TPU the grain kernel fetched its pattern windows as a one-hot matrix
 product on the matrix unit, and these probes measured what that product
 costs.  For every (frame, 16-line block row) of a uint16 plane ``y`` they
 write ``clip(y + s, 0, hi)``, where ``s`` sums row slices of 16 of a
-candidate matrix (see csrc/probe_dot.cu for none, f32, gather and build,
-and csrc/probe_dotconst.cu for the persistent wgmma products: K6's int8 and
-bf16 one-hot products and the dense product of dotconst and K8).  Here are
-their shapes, their seeded inputs (drawn in the order of each JAX probe's
-``main``), the plain torch versions of every mode, the wrapper of both
-kernels and the work schedule of the persistent one.
+candidate matrix (see csrc/probe_dot.cu for none, gather and build, and
+csrc/probe_dotconst.cu for the persistent wgmma products: K6's int8, bf16
+and f32 (TF32) one-hot products and the dense product of dotconst and K8).
+Here are their shapes, their seeded inputs (drawn in the order of each JAX
+probe's ``main``), the plain torch versions of every mode, the wrapper of
+both kernels, and the work schedule and TF32 row groups of the persistent
+one.
 """
 
 from __future__ import annotations
@@ -36,8 +37,8 @@ MODES = {"none": 0, "int8": 1, "bf16": 2, "f32": 3, "gather": 4,
          "build": 5, "dotconst": 6}
 ONEHOT_MODES = ("int8", "bf16", "f32", "gather")
 # The modes of csrc/probe_dotconst.cu, by the source of its A operand: the
-# constant oh_t, or the one-hot of t built in int8 or bf16 registers.
-WGMMA_SRC = {"dotconst": 0, "int8": 1, "bf16": 2}
+# constant oh_t, or the one-hot of t built in int8, bf16 or TF32 registers.
+WGMMA_SRC = {"dotconst": 0, "int8": 1, "bf16": 2, "f32": 3}
 # The inputs besides y that each mode reads ("oh": the constant matrix).
 READS = {"none": (), "build": ("t",), "dotconst": ("pat", "oh"),
          **{m: ("t", "pat") for m in ONEHOT_MODES}}
@@ -204,11 +205,28 @@ def dotconst_schedule(frames: int, rows: int, width: int,
             for b in range(ctas)]
 
 
+def tf32_row_groups() -> torch.Tensor:
+    """The banks of csrc/probe_dotconst.cu's TF32 instance, in the kernel's
+    own arithmetic: (2, 9, 8) int64, ``groups[g, i', p]`` the pattern row
+    that group ``g`` stages as its bank row ``8 i' + p``: ``stride p + 9 g +
+    i'``, slice ``p`` of line ``9 g + i'``.  The f32 bank of all 144 rows
+    does not fit in shared memory; each group's 72 rows do, and hold whole
+    lines, so a thread block stages group 0, walks its items, restages with
+    group 1 and walks them again, and no partial sum crosses groups.  Group
+    1's lines 16 and 17 (rows 18p + 16, 18p + 17) are computed, as the TPU
+    computed them, and fold nowhere."""
+    stride, slices = ROWS_K6
+    lines = M // slices // 2      # 9 a group
+    g, i, p = torch.meshgrid(torch.arange(2), torch.arange(lines),
+                             torch.arange(slices), indexing="ij")
+    return stride * p + lines * g + i
+
+
 def dotconst_info(m: int, rows, mode: str = "dotconst") -> dict:
     """Registers, dynamic shared memory bytes, local memory bytes (stack
     and spills) a thread and thread blocks per SM of the csrc/probe_dotconst.cu
-    instance for (m, rows) of ``mode`` (dotconst, or K6's int8 or bf16);
-    builds the library on first use."""
+    instance for (m, rows) of ``mode`` (dotconst, or K6's int8, bf16 or
+    f32); builds the library on first use."""
     if mode not in WGMMA_SRC:
         raise ValueError(f"{mode} does not run csrc/probe_dotconst.cu: "
                          f"expected one of {list(WGMMA_SRC)}")
@@ -244,15 +262,16 @@ def dot_probe_cuda(y, t=None, pat=None, oh_t=None, *, mode: str,
     outside [0, K) matches no one-hot row, as in the plain versions);
     ``pat``: (m, K) int8, 16-byte aligned; ``oh_t``: (W, K) int8, the
     constant matrix transposed; each where :data:`READS` says ``mode`` reads
-    it.  ``rows``: slice stride and count.  none, f32, gather and build run
+    it.  ``rows``: slice stride and count.  none, gather and build run
     csrc/probe_dot.cu, where ``strips`` is the block rows per thread block
-    (the bank is staged once for them).  dotconst, int8 and bf16
+    (the bank is staged once for them).  dotconst, int8, bf16 and f32
     (:data:`WGMMA_SRC`) run csrc/probe_dotconst.cu on a persistent grid
-    that schedules the strips itself (:func:`dotconst_schedule`): they take
-    ``strips`` = 1 only and refuse any other, and need W a multiple of 8
-    and ``y`` (and dotconst's ``oh_t``) 16-byte aligned.  Adds one to
-    ``dot_probe_cuda.launches`` and to ``dot_probe_cuda.by_mode[mode]`` per
-    launch."""
+    that schedules the strips itself (:func:`dotconst_schedule`; f32 walks
+    it once per row group, :func:`tf32_row_groups`, in the same launch):
+    they take ``strips`` = 1 only and refuse any other, and need W a
+    multiple of 8 and ``y`` (and dotconst's ``oh_t``) 16-byte aligned.
+    Adds one to ``dot_probe_cuda.launches`` and to
+    ``dot_probe_cuda.by_mode[mode]`` per launch."""
     dev = y.device
     if y.dim() != 3 or y.shape[1] % 16:
         raise ValueError(f"y must be (F, 16R, W), got {tuple(y.shape)}")
