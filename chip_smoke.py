@@ -27,9 +27,16 @@ Phases, one result line each:
                  --batch 8 (the main path; launches counted), output size and
                  first frame checked against the plain version;
   7. tiled 4K -- the tiled engine (--engine pallas) at phase 3's shape: its
-                 kernel against its plain strip function on the card and
-                 against the natural kernel, exact on all planes; the kernel
-                 alone, the whole tiled step and the plain version timed;
+                 kernel (K3, on natural planes) against its plain version
+                 (plane_tiled_natural_plain: tile, strip function, untile)
+                 on the card and against the natural kernel, exact on all
+                 planes; K3 alone (and each plane's launch beside a copy of
+                 the plane) and the plain version timed, the whole
+                 tiled step timed beside the natural step with the kernels
+                 each launches (torch.profiler); registers, static and
+                 dynamic shared memory, local memory and thread blocks per
+                 SM of each K3 instance, and the SASS counts of the uint16
+                 16x16 one;
   8. tiled geometry -- phase 4's cases through the tiled kernel;
   9. tiled golden   -- the 48 golden CLI cases through --engine pallas;
  10. tiled cli 4K   -- the CLI with --engine pallas --batch 8 on phase 6's
@@ -250,8 +257,8 @@ def kernel_vs_plain(pipe, frame_ids, seed, dev):
 
 
 def tiled_vs_plain(pipe, frame_ids, seed, dev):
-    """Run the tiled engine, its plain strip function (on the same device)
-    and the natural kernel on the same inputs; returns (max |err| against
+    """Run the tiled engine, its plain version (on the same device) and the
+    natural kernel on the same inputs; returns (max |err| against
     the plain version, max |err| against the natural kernel, planes,
     (bases, bases_up), tables)."""
     from versatilefilmgrain_tpu_torch.ops import grain_natural, grain_pallas
@@ -265,9 +272,9 @@ def tiled_vs_plain(pipe, frame_ids, seed, dev):
     k = grain_pallas.add_grain_batch_pallas(
         *planes, bases, bases_up, tables, height=pipe.height,
         width=pipe.width, **geo)
-    p = grain_pallas._tiled_batch(*planes, bases, bases_up, tables, R=R, C=C,
-                                  strip_fn=grain_pallas.plane_tiled_plain,
-                                  **geo)
+    p = grain_pallas._tiled_batch(
+        *planes, bases, tables, R=R, C=C,
+        plane_fn=grain_pallas.plane_tiled_natural_plain, **geo)
     n = grain_natural.add_grain_batch_natural(
         *planes, bases, bases_up, grain_natural.natural_tables(regs, dev),
         height=pipe.height, width=pipe.width, **geo)
@@ -332,7 +339,8 @@ def main() -> int:
     from torch_port_cases import golden_cli_args
     from versatilefilmgrain_tpu_torch import GrainPipeline, cli
     from versatilefilmgrain_tpu_torch.ops import (_kernels, grain_natural,
-                                                  grain_pallas, lfsr)
+                                                  grain_pallas)
+    from versatilefilmgrain_tpu_torch.tools import bench_tiled
     from versatilefilmgrain_tpu_torch.ops.grain_ref import plane_grain
     from versatilefilmgrain_tpu_torch.utils import yuv
 
@@ -500,19 +508,17 @@ def main() -> int:
           f"(max |err| {terr})")
     check(terr_n == 0, f"4K tiled kernel differs from the natural kernel "
           f"(max |err| {terr_n})")
-    R4, C4 = -(-H // 16), -(-W // 16)
+    R4 = -(-H // 16)
     lat = grain_natural._lattice(bases, planes[0])
-    lat_up = torch.cat([lfsr.state_lattice_torch(bases_up, 1, C4, dev),
-                        lat[:, :-1]], dim=1)
     tregs = tpipe.regs
     tgeo = dict(bs=tregs.bs, csubx=tregs.csubx, csuby=tregs.csuby)
-    # pre-tiled kernel arguments, one per plane
-    strips = [grain_pallas._strip_args(p, c, lat, lat_up, ttables, R=R4,
-                                       C=C4, **tgeo)
-              for c, p in enumerate(planes)]
+    # K3's arguments on the natural planes, one per plane
+    pargs = [grain_pallas._plane_args(p, c, lat, grain_natural._rows_above(lat),
+                                      ttables, **tgeo)
+             for c, p in enumerate(planes)]
 
     def run_tiled_kernel():
-        for args, kw in strips:
+        for args, kw in pargs:
             grain_pallas.plane_tiled_cuda(*args, **kw)
 
     def run_tiled_step():
@@ -520,8 +526,8 @@ def main() -> int:
             *planes, bases, bases_up, ttables, height=H, width=W, **tgeo)
 
     def run_tiled_plain():
-        for args, kw in strips:
-            grain_pallas.plane_tiled_plain(*args, **kw)
+        for args, kw in pargs:
+            grain_pallas.plane_tiled_natural_plain(*args, **kw)
 
     def run_natural_step():
         grain_natural.add_grain_batch_natural(
@@ -535,24 +541,52 @@ def main() -> int:
     ms_tp2 = cuda_ms(run_tiled_plain, 5, warmup=1)
     ms_ts2 = cuda_ms(run_tiled_step, 20)
     ms_ns2 = cuda_ms(run_natural_step, 20)
+    prof = {name: bench_tiled._profile(fn, 5) for name, fn in
+            (("tiled", run_tiled_step), ("natural", run_natural_step))}
+    # each plane's launch alone, beside a copy of the plane and its bound
+    ms_planes = [(cuda_ms(lambda a=a, kw=kw: grain_pallas.plane_tiled_cuda(
+                      *a, **kw), 20),
+                  cuda_ms(lambda a=a: a[0].clone(), 20),
+                  byte_bound_ms(2 * tensor_bytes(a[0]) + tensor_bytes(*a[1:])))
+                 for a, kw in pargs]
     phase("tiled 4K", f"{W}x{H} 10-bit 4:2:0 default config, batch {F}, "
           f"frames {frame_ids}: tiled kernel == its plain version (max |err| "
           f"{terr}) == natural kernel (max |err| {terr_n}) on Y, U, V")
     phase("tiled 4K", f"time per batch step (CUDA events, warmed up; runs "
-          f"kernel, plain, tiled step, natural step, and again): kernel "
-          f"alone (3 launches on pre-tiled strips) {ms_tk:.4f} / "
-          f"{ms_tk2:.4f} ms, plain strip function on the same strips "
-          f"{ms_tp:.3f} / {ms_tp2:.3f} ms, whole tiled step (lattices, "
-          f"offsets, tile, kernel, untile) {ms_ts:.4f} / {ms_ts2:.4f} ms, "
-          f"natural step (lattice, K1) {ms_ns:.4f} / {ms_ns2:.4f} ms; "
-          f"{nbytes / 1e6:.1f} MB moved by the kernel = "
-          f"{nbytes / (min(ms_tk, ms_tk2) * 1e-3) / 1e12:.3f} TB/s; "
+          f"kernel, plain, tiled step, natural step, and again): K3 alone (3 "
+          f"launches on natural planes) {ms_tk:.4f} / {ms_tk2:.4f} ms, plain "
+          f"version (tile, strip function, untile) {ms_tp:.3f} / "
+          f"{ms_tp2:.3f} ms, whole tiled step (lattice, offsets, K3) "
+          f"{ms_ts:.4f} / {ms_ts2:.4f} ms, natural step (lattice, K1) "
+          f"{ms_ns:.4f} / {ms_ns2:.4f} ms; {nbytes / 1e6:.1f} MB moved by "
+          f"K3 = {nbytes / (min(ms_tk, ms_tk2) * 1e-3) / 1e12:.3f} TB/s; "
           f"card {card}")
+    phase("tiled 4K", "K3 per plane, Y, U, V (CUDA events): " + ", ".join(
+        f"{k:.4f} ms (a copy of the plane {c:.4f}, bound {b:.4f})"
+        for k, c, b in ms_planes))
+    phase("tiled 4K", "per step (torch.profiler, a chain of 5): " + "; ".join(
+        f"{name} step {p['kernels_per_step']:g} kernels and "
+        f"{p['copies_per_step']:g} copies launched, kernels "
+        f"{p['kernels_ms']:.4f} ms of device time, the largest "
+        + ", ".join(f"{k} {v:.4f}" for k, v in
+                    list(p["kernel_ms"].items())[:3])
+        for name, p in prof.items()))
+    phase("tiled 4K", "K3 instances, registers / static / dynamic shared "
+          "memory bytes / local memory bytes per thread / thread blocks per "
+          "SM at 256 threads (occupancy calculator): " + ", ".join(
+              "uint{} {}x{} {registers} / {static_smem} / {dynamic_smem} / "
+              "{local_bytes} / {blocks_per_sm}".format(
+                  8 * eb, bh, bw, **grain_pallas.grain_tiled_info(eb, bh, bw))
+              for eb in (2, 1) for bh, bw, _ in grain_pallas._GEOMETRIES))
+    phase("tiled 4K", "K3's uint16 16x16 instance (luma): " + sass_counts(
+        _kernels, "grain_tiled", "grain_tiled_kernelItLi16ELi16EE",
+        keys=("LDG", "LDS", "STS", "STG", "ATOMS", "BAR", "SHFL", "LDL",
+              "STL", "IMAD", "ISETP", "SEL", "PRMT", "BRA")))
     tiled_ms, tiled_plain_ms = min(ms_tk, ms_tk2), min(ms_tp, ms_tp2)
     k3_bound = byte_bound_ms(sum(2 * tensor_bytes(args[0])
                                  + tensor_bytes(*args[1:])
-                                 for args, _ in strips))
-    del planes, lat, lat_up, strips
+                                 for args, _ in pargs))
+    del planes, lat, pargs
 
     # 8. tiled engine, other geometries (frames 0, 1, 3)
     for i, (name, w, h, depth, fmt, kw) in enumerate(cases):

@@ -1,6 +1,7 @@
 """The torch port's CUDA kernels against their plain versions, on the card:
-K1 (lattice and lane-word input, shard boot), K2, K3, the two probes of K1
-(K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu), the one-hot dot probes
+K1 (lattice and lane-word input, shard boot), K2, K3 (on natural planes),
+the two probes of K1 (K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu),
+the one-hot dot probes
 (K6-K8, csrc/probe_dot.cu and, for K6's int8, bf16 and TF32 products and the
 dense product, csrc/probe_dotconst.cu) and the relayout probes (K9, K10,
 csrc/probe_relayout.cu).
@@ -184,8 +185,8 @@ def test_pipeline_pad_leak_matches_plain(width, height, depth, cuda_device):
 
 
 def _tiled_kernel_plain_natural(kind, depth, csub, dev):
-    """The tiled engine on the card, its plain strip function on the card
-    and the natural kernel, on the same planes."""
+    """The tiled engine on the card, its plain version on the card and the
+    natural kernel, on the same planes."""
     regs = regs_for(TORCH_PKG, kind, depth, csub)
     frames = (0, 1, 3)
     bases, bases_up = frame_bases(TORCH_PKG, regs.seed_state, R, C, frames)
@@ -195,9 +196,9 @@ def _tiled_kernel_plain_natural(kind, depth, csub, dev):
     ptab = grain_pallas.pallas_tables(regs, dev)
     k = grain_pallas.add_grain_batch_pallas(*planes, bases, bases_up, ptab,
                                             height=H, width=W, **geo)
-    p = grain_pallas._tiled_batch(*planes, bases, bases_up, ptab, R=R, C=C,
-                                  strip_fn=grain_pallas.plane_tiled_plain,
-                                  **geo)
+    p = grain_pallas._tiled_batch(
+        *planes, bases, ptab, R=R, C=C,
+        plane_fn=grain_pallas.plane_tiled_natural_plain, **geo)
     n = grain_natural.add_grain_batch_natural(
         *planes, bases, bases_up, grain_natural.natural_tables(regs, dev),
         height=H, width=W, **geo)
@@ -222,6 +223,102 @@ def test_tiled_launch_counter(cuda_device):
     before = grain_pallas.plane_tiled_cuda.launches
     _tiled_kernel_plain_natural("sei_ff", 10, (2, 2), cuda_device)
     assert grain_pallas.plane_tiled_cuda.launches == before + 3
+
+
+# K3's thread blocks hold 32 runs of 8 columns: with 17, 33 or 49 block
+# columns a row ends inside a partly filled group (luma widths 272, 528, 784;
+# subsampled chroma 136, 264, 392), one run of it live at 33 in chroma.
+@pytest.mark.parametrize("cols", [17, 33, 49])
+@pytest.mark.parametrize("depth", [8, 10])
+@pytest.mark.parametrize("csub", [(2, 2), (2, 1), (1, 1)])
+def test_tiled_kernel_widths_match_plain(cols, depth, csub, cuda_device):
+    """K3 (the tiled step on the card) == plane_tiled_natural_plain and ==
+    the natural kernel, every plane, at widths that end a row inside a
+    thread block's group of runs."""
+    regs = regs_for(TORCH_PKG, "sei_ff", depth, csub)
+    ptab = grain_pallas.pallas_tables(regs, cuda_device)
+    rows, frames = 3, (0, 2)
+    bases, bases_up = frame_bases(TORCH_PKG, regs.seed_state, rows, cols,
+                                  frames)
+    planes = [torch.from_numpy(p).to(cuda_device) for p in
+              random_planes(cols + depth, depth, rows, cols, csub,
+                            frames=len(frames))]
+    geo = dict(bs=depth - 8, csubx=csub[0], csuby=csub[1])
+    want = grain_pallas._tiled_batch(
+        *planes, bases, ptab, R=rows, C=cols,
+        plane_fn=grain_pallas.plane_tiled_natural_plain, **geo)
+    nat = grain_natural.add_grain_batch_natural(
+        *planes, bases, None, grain_natural.natural_tables(regs, cuda_device),
+        height=rows * 16, width=cols * 16, **geo)
+    before = grain_pallas.plane_tiled_cuda.launches
+    got = grain_pallas.add_grain_batch_pallas(
+        *planes, bases, bases_up, ptab, height=rows * 16, width=cols * 16,
+        **geo)
+    torch.cuda.synchronize()
+    assert grain_pallas.plane_tiled_cuda.launches == before + 3
+    for c in range(3):
+        where = f"C={cols} d{depth} csub{csub} plane {c}"
+        assert torch.equal(got[c], want[c]), where
+        assert torch.equal(got[c], nat[c]), where
+
+
+@pytest.mark.parametrize("depth", [8, 10])
+def test_tiled_kernel_unaligned_planes(depth, cuda_device):
+    """A plane whose pointer is not aligned to a thread's 8 samples is
+    copied into an aligned one before K3's launch; it gives the aligned
+    plane's output.  Each instance reports its registers, shared memory,
+    local memory and blocks per SM."""
+    regs = regs_for(TORCH_PKG, "afgs1", depth, (2, 2))
+    ptab = grain_pallas.pallas_tables(regs, cuda_device)
+    rows, cols = 2, 33
+    bases, _ = frame_bases(TORCH_PKG, regs.seed_state, rows, cols, (0, 1))
+    lat = grain_natural._lattice(bases, torch.empty(
+        2, rows * 16, cols * 16, device=cuda_device))
+    u = torch.from_numpy(random_planes(73, depth, rows, cols, (2, 2),
+                                       frames=2)[1]).to(cuda_device)
+    args, kw = grain_pallas._plane_args(u, 1, lat,
+                                        grain_natural._rows_above(lat), ptab,
+                                        bs=depth - 8, csubx=2, csuby=2)
+    want = grain_pallas.plane_tiled_cuda(*args, **kw)
+    buf = torch.empty(u.numel() + 1, dtype=u.dtype, device=cuda_device)
+    shifted = buf[1:].view(u.shape)
+    shifted.copy_(u)
+    assert shifted.data_ptr() % (8 * u.element_size()) != 0
+    got = grain_pallas.plane_tiled_cuda(shifted, *args[1:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(want, grain_pallas.plane_tiled_natural_plain(*args,
+                                                                    **kw))
+    for bh, bw, _ in grain_pallas._GEOMETRIES:
+        info = grain_pallas.grain_tiled_info(u.element_size(), bh, bw)
+        assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
+        assert info["static_smem"] >= 16 * 8 * bh * bw, info
+        assert info["dynamic_smem"] == 0 and info["local_bytes"] >= 0, info
+
+
+def test_tiled_step_never_tiles_on_the_card(cuda_device, monkeypatch):
+    """The tiled step's CUDA route hands K3 natural planes: with _tile and
+    _untile raising, it still runs and equals the plain version."""
+    regs = regs_for(TORCH_PKG, "sei_ff", 10, (2, 2))
+    ptab = grain_pallas.pallas_tables(regs, cuda_device)
+    bases, bases_up = frame_bases(TORCH_PKG, regs.seed_state, R, C, (0, 1))
+    planes = [torch.from_numpy(p).to(cuda_device) for p in
+              random_planes(79, 10, R, C, (2, 2), frames=2)]
+    geo = dict(bs=2, csubx=2, csuby=2)
+    want = grain_pallas._tiled_batch(
+        *planes, bases, ptab, R=R, C=C,
+        plane_fn=grain_pallas.plane_tiled_natural_plain, **geo)
+
+    def no_relayout(*args, **kwargs):
+        raise AssertionError("the CUDA route tiled or untiled a plane")
+
+    monkeypatch.setattr(grain_pallas, "_tile", no_relayout)
+    monkeypatch.setattr(grain_pallas, "_untile", no_relayout)
+    got = grain_pallas.add_grain_batch_pallas(
+        *planes, bases, bases_up, ptab, height=H, width=W, **geo)
+    torch.cuda.synchronize()
+    for c in range(3):
+        assert torch.equal(got[c], want[c]), f"plane {c}"
 
 
 def test_expand_words_matches_plain(cuda_device):

@@ -136,13 +136,10 @@ def test_tile_untile_match_jax(depth, csub):
 
 # (c) the strip function against the JAX kernel ------------------------------
 
-@pytest.mark.parametrize("kind,depth,csub,c", [
-    ("sei_ff", 10, (2, 2), 0), ("afgs1", 8, (2, 2), 1),
-    ("sei_ff", 8, (2, 1), 1), ("afgs1", 10, (2, 1), 2),
-    ("afgs1", 8, (1, 1), 1), ("sei_ar", 10, (1, 1), 0)])
-def test_plane_tiled_plain_matches_jax_kernel(kind, depth, csub, c):
-    """plane_tiled_plain against _plane_pallas(interpret=True) on the same
-    tiled strips, offsets and tables."""
+def _jax_plane_case(kind, depth, csub, c):
+    """One plane of both packages' kernel inputs: the natural plane, the
+    JAX package's offset arrays (numpy), the JAX tables' arguments and the
+    port's, and the shared keyword geometry and scalars."""
     jregs = regs_for(JAX_PKG, kind, depth, csub)
     tregs = regs_for(TORCH_PKG, kind, depth, csub)
     jt = jgp.pallas_tables(jregs)
@@ -160,22 +157,58 @@ def test_plane_tiled_plain_matches_jax_kernel(kind, depth, csub, c):
                                "win_chroma_up")
         imin, imax = tregs.c_min, tregs.c_max
     plane = random_planes(13, depth, R, C, csub, frames=len(FRAMES))[c]
-    xt = np.array(jgp._tile(jnp.asarray(plane), len(FRAMES), R, bh, C, bw))
     offs = [np.array(a) for a in
             jgp._offset_arrays(jlat, jlat_up, c, *csub)]
-    nseg = jt["seg_starts"].shape[1]
-    scal = dict(bs=depth - 8, scale_shift=tregs.scale_shift, imin=imin,
-                imax=imax)
+    jargs = (jnp.asarray(jt["seg_starts"][c]),
+             jnp.asarray(jt["seg_deltas"][c]), jnp.asarray(jt[L]),
+             jnp.asarray(jt[Lup]))
+    jkw = dict(suby=suby, nseg=jt["seg_starts"].shape[1], interpret=True)
+    targs = (tt["seg_starts"][c], tt["seg_deltas"][c], tt[win], tt[win_up])
+    geo = dict(bh=bh, bw=bw, n_ov=n_ov, bs=depth - 8,
+               scale_shift=tregs.scale_shift, imin=imin, imax=imax)
+    return plane, offs, (jargs, jkw), targs, geo
+
+
+@pytest.mark.parametrize("kind,depth,csub,c", [
+    ("sei_ff", 10, (2, 2), 0), ("afgs1", 8, (2, 2), 1),
+    ("sei_ff", 8, (2, 1), 1), ("afgs1", 10, (2, 1), 2),
+    ("afgs1", 8, (1, 1), 1), ("sei_ar", 10, (1, 1), 0)])
+def test_plane_tiled_plain_matches_jax_kernel(kind, depth, csub, c):
+    """plane_tiled_plain against _plane_pallas(interpret=True) on the same
+    tiled strips, offsets and tables."""
+    plane, offs, (jargs, jkw), targs, geo = _jax_plane_case(kind, depth,
+                                                            csub, c)
+    xt = np.array(jgp._tile(jnp.asarray(plane), len(FRAMES), R, geo["bh"],
+                            C, geo["bw"]))
     want = jgp._plane_pallas(
-        jnp.asarray(xt), *(jnp.asarray(a) for a in offs),
-        jnp.asarray(jt["seg_starts"][c]), jnp.asarray(jt["seg_deltas"][c]),
-        jnp.asarray(jt[L]), jnp.asarray(jt[Lup]), bh=bh, bw=bw, n_ov=n_ov,
-        suby=suby, nseg=nseg, interpret=True, **scal)
+        jnp.asarray(xt), *(jnp.asarray(a) for a in offs), *jargs, **jkw,
+        **geo)
     got = grain_pallas.plane_tiled_plain(
-        torch.from_numpy(xt), *(torch.from_numpy(a) for a in offs),
-        tt["seg_starts"][c], tt["seg_deltas"][c], tt[win], tt[win_up],
-        bh=bh, bw=bw, n_ov=n_ov, **scal)
+        torch.from_numpy(xt), *(torch.from_numpy(a) for a in offs), *targs,
+        **geo)
     assert got.dtype == torch.from_numpy(xt).dtype
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("kind,depth,csub,c", [
+    ("sei_ff", 10, (2, 2), 0),      # 16x16 blocks, luma
+    ("sei_ff", 8, (2, 1), 1),       # 16x8, 4:2:2 chroma
+    ("afgs1", 8, (2, 2), 2)])       # 8x8, 4:2:0 chroma
+def test_plane_tiled_natural_plain_matches_jax_kernel(kind, depth, csub, c):
+    """plane_tiled_natural_plain (the kernel's plain version on natural
+    planes) against _untile(_plane_pallas(_tile(x), interpret=True)), one
+    geometry each."""
+    plane, offs, (jargs, jkw), targs, geo = _jax_plane_case(kind, depth,
+                                                            csub, c)
+    lay = (len(FRAMES), R, geo["bh"], C, geo["bw"])
+    want = jgp._untile(jgp._plane_pallas(
+        jgp._tile(jnp.asarray(plane), *lay),
+        *(jnp.asarray(a) for a in offs), *jargs, **jkw, **geo), *lay)
+    got = grain_pallas.plane_tiled_natural_plain(
+        torch.from_numpy(plane), *(torch.from_numpy(a) for a in offs),
+        *targs, **geo)
+    assert got.dtype == torch.from_numpy(plane).dtype
+    assert got.shape == plane.shape
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
@@ -211,6 +244,47 @@ def test_batch_matches_jax_tiled(kind, depth, csub):
     assert grain_pallas.plane_tiled_cuda.launches == 0
 
 
+def test_jax_tiled_step_ignores_bases_up():
+    """The JAX tiled engine gives the same planes for two different
+    ``bases_up``: the upper row-0 lattice it builds from them is never read
+    (a frame's first block row does not blend), which is why the port's
+    step does not build it."""
+    jregs = regs_for(JAX_PKG, "sei_ff", 10, (2, 2))
+    planes = [jnp.asarray(p) for p in
+              random_planes(37, 10, R, C, (2, 2), frames=2)]
+    bases, bases_up = frame_bases(TORCH_PKG, jregs.seed_state, R, C, (1, 4))
+    other = [b ^ 0x5A5A5A5A for b in bases_up]
+    assert other != bases_up
+    outs = [jgp.add_grain_batch_pallas(
+        *planes, jnp.asarray(np.array(bases, np.uint32)),
+        jnp.asarray(np.array(bu, np.uint32)), jgp.pallas_tables(jregs),
+        height=H, width=W, bs=2, csubx=2, csuby=2, interpret=True)
+        for bu in (bases_up, other)]
+    for c in range(3):
+        assert np.array_equal(np.asarray(outs[0][c]), np.asarray(outs[1][c]))
+
+
+def test_tiled_step_builds_one_lattice(monkeypatch):
+    """The port's tiled step builds the (F, R, C) lattice of ``bases`` and
+    no other: each block row's upper row is the row before it."""
+    regs = regs_for(TORCH_PKG, "afgs1", 10, (2, 2))
+    planes = [torch.from_numpy(p) for p in
+              random_planes(39, 10, R, C, (2, 2), frames=2)]
+    bases, bases_up = frame_bases(TORCH_PKG, regs.seed_state, R, C, (0, 3))
+    calls = []
+    lattice = tlfsr.state_lattice_torch
+
+    def counted(b, rows, cols, device):
+        calls.append((list(b), rows, cols))
+        return lattice(b, rows, cols, device)
+
+    monkeypatch.setattr(tlfsr, "state_lattice_torch", counted)
+    grain_pallas.add_grain_batch_pallas(
+        *planes, bases, bases_up, grain_pallas.pallas_tables(regs, "cpu"),
+        height=H, width=W, bs=2, csubx=2, csuby=2)
+    assert calls == [(list(bases), R, C)]
+
+
 def test_wrapper_rejects_bad_inputs():
     regs = regs_for(TORCH_PKG, "sei_ff", 10, (2, 2))
     tables = grain_pallas.pallas_tables(regs, "cpu")
@@ -229,11 +303,10 @@ def test_wrapper_rejects_bad_inputs():
     meta = [p.to("meta") for p in (y, u, v)]
     with pytest.raises(ValueError, match="no grain kernel"):
         grain_pallas.add_grain_batch_pallas(*meta, [1], [1], tables, **geo)
-    xt = grain_pallas._tile(y, 1, R, 16, C, 16)
     offs = [torch.zeros((1, R, 1, C), dtype=torch.int32)] * 4
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         grain_pallas.plane_tiled_cuda(
-            xt, *offs, tables["seg_starts"][0], tables["seg_deltas"][0],
+            y, *offs, tables["seg_starts"][0], tables["seg_deltas"][0],
             tables["win_luma"], tables["win_luma_up"], bh=16, bw=16, n_ov=2,
             bs=2, scale_shift=5, imin=16, imax=235)
     assert grain_pallas.plane_tiled_cuda.launches == 0

@@ -1,75 +1,98 @@
-// Tiled film-grain strip kernel for one plane of a batch of frames, written
+// Tiled-engine film-grain kernel for one plane of a batch of frames, written
 // for Hopper (sm_90a).
 //
 // Replaces versatilefilmgrain_tpu/ops/grain_pallas.py::_plane_pallas (:189),
 // the TPU kernel of the JAX package's tiled engine (--engine pallas).  It
-// computes the same integers on the same tiled layout: a (frame, block row)
-// strip is (S = bh*bw, C), row s = y*bw + i is the in-block pixel, column c
-// the block column, and C is the contiguous axis.  The TPU kernel fetches the
-// 8 pattern candidates of each block's window with a one-hot int8 matrix
-// product (its stand-in for a gather) and reaches the deblock neighbour with
-// lane rolls.  Here each block column's window is staged in shared memory
-// and read per pixel, and the deblock exchanges pre-deblock samples between
-// neighbouring block columns through shared memory.
+// keeps that engine's data model -- per-block window index and sign of the
+// block and of the block above (ops/grain_pallas.py::_offset_arrays), the
+// run-length segment chain of the packed (scale | pattern) LUT, and the
+// (156, 8, bh, bw) / (156, 8, n_ov, bw) int8 window tables -- and computes
+// the same integers, but on the natural padded plane (F, R*bh, C*bw) rather
+// than the TPU's tiled strips, so the step tiles and untiles nothing.  The
+// TPU kernel fetches the 8 pattern candidates of each block's window with a
+// one-hot int8 matrix product (its stand-in for a gather) and reaches the
+// deblock neighbour with lane rolls; here a thread block stages the
+// candidates its LUT can select in shared memory, and the deblock takes a
+// neighbour's sample from the lane that computed it.
 //
-// Per pixel (reference: vfgs_hw.c:140-312, JAX grain_pallas._plane_kernel):
+// Per pixel of block row r, block column c, block line j and block column i
+// (reference: vfgs_hw.c:140-312, JAX grain_pallas._plane_kernel):
 //   inten   = (x >> bs) & 255
 //   acc     = sum_k (inten >= segs[k]) * segd[k];  sc = acc & 511, pi = acc >> 9
-//   P       = sign[c] * win[widx[c]][pi][s]
-//   overlap rows s < n_ov*bw of block rows r > 0:
-//             P = (P*oc1 + Pu*oc2 + 16) >> 5,  Pu = signu[c] * win_up[widxu[c]][pi][s]
-//             (oc1, oc2) = (12, 24) / (24, 12) on rows y = 0 / 1, (20, 20) if n_ov = 1
+//   P       = sign[c] * win[widx[c]][pi][j][i]
+//   lines j < n_ov of block rows r > 0:
+//             P = (P*oc1 + Pu*oc2 + 16) >> 5,  Pu = signu[c] * win_up[widxu[c]][pi][j][i]
+//             (oc1, oc2) = (12, 24) / (24, 12) on lines j = 0 / 1, (20, 20) if n_ov = 1
 //   deblock i = 0 of columns c > 0:       (l0[c-1] + 3*P + P[i=1] + 2) >> 2
 //           i = bw-1 of columns c < C-1:  (P[i=bw-2] + 3*P + r0[c+1] + 2) >> 2
-//           all from pre-deblock samples
+//           all from pre-deblock samples, each with its own block's window,
+//           sign and pixel
 //   out     = clip(x + ((sc*P + (1 << (ss-1))) >> ss), imin << bs, imax << bs)
 // All arithmetic is int32 with arithmetic right shifts, as in the C model.
 //
 // What bounds it on this card: bytes.  One 8-frame 3840x2160 10-bit 4:2:0
-// batch is 199 MB of samples in and 199 MB out of device memory (a computed
-// 0.119 ms at the H100 SXM data sheet's 3.35 TB/s).  The window tables
-// (320 KB luma + 40 KB luma-up, 80 KB + 10 KB for 4:2:0 chroma) stay in L2,
-// but staging a whole window (all 8 candidates) per block reads 9 bytes of
-// table per luma pixel from L2, more than the 4 bytes of samples it moves.
-// What the design does about it: samples are read and written once, with
-// neighbouring threads on neighbouring columns; windows are staged with
-// 4-byte loads into a padded shared layout (each block column on its own
-// bank), once per block and not per pixel; the LUT pair is evaluated once
-// per intensity (256 entries) from the segment chain, so a dense chain costs
-// 256 compare-adds per thread block instead of per pixel.  Staging only the
-// candidates a column's pixels select is left to a later change.
+// batch is 199 MB of samples in and 199 MB out of device memory (0.119 ms at
+// the H100 SXM data sheet's 3.35 TB/s).  The window tables (320 KB luma + 40
+// KB luma-up, 80 KB + 10 KB for 4:2:0 chroma) stay in L2, but a whole window
+// is 8 bytes of table per pixel, more than the pixel's own samples.  What the
+// design does about it:
+//   * a thread moves 8 consecutive samples of a line as one vector (16 bytes
+//     of uint16, 8 of uint8), neighbouring lanes on neighbouring runs, reads
+//     them once and keeps them in registers until it stores;
+//   * the packed LUT is evaluated once per intensity (256 entries) from the
+//     segment chain, once per thread block, and gives the candidates the
+//     plane can select at all (the default config's luma LUT selects all
+//     8, its chroma LUTs 1); the thread block stages those of each of its
+//     blocks' windows from L2 with 16-byte loads, while its samples are
+//     still on the way from device memory: nothing waits on a pixel before
+//     the one barrier.
+// On an H100 it runs at about a third of that bound (PERF.md): the bytes
+// are not what holds it, but each pixel's two shared-memory reads at
+// data-dependent addresses (its LUT entry and its window byte, which meet
+// on banks when the pixels are noise) with a score of integer instructions,
+// after a barrier that waits for the staging from L2.
 //
-// Grid: one thread block per (frame, block row, group of kGroup block
-// columns); 256 threads, thread t owns column t % kGroup of the group and
-// rows s = t / kGroup + 16k.  The group's pre-deblock samples go to shared
-// memory, plus one halo sample per line from each neighbouring group.
+// Grid: one thread block of 256 threads per (frame, block row, group of 32
+// runs of 8 columns).  Lane l owns run l of the group, warp w the block
+// row's lines w and w + 8 (bh = 16) or line w (bh = 8); a run lies inside
+// one block (bw is 8 or 16), so luma takes 2 lanes a block line and
+// subsampled chroma 1.  Lanes past the row's last run repeat it: they take
+// part in the shuffles and store nothing.  At the group's two ends the
+// deblock neighbour belongs to another thread block: lane 0 also samples
+// column x0 - 1 and lane 31 column x0 + 8, that block's window read from L2.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/_kernels.py does this at first use).
 
-#include <cuda_runtime.h>
 #include <limits.h>
-#include <stdint.h>
+
+#include "grain_natural_body.cuh"  // vfg::RunBits, vfg::store_run, vfg::kRun
 
 namespace {
 
+using vfg::kRun;
+using vfg::RunBits;
+using vfg::store_run;
+
 constexpr int kThreads = 256;
-constexpr int kGroup = 16;                          // block columns per block
-constexpr int kRowsPerPass = kThreads / kGroup;     // strip rows per pass
+constexpr int kWarps = kThreads / 32;
+constexpr int kGroupRuns = 32;  // runs of a thread block, one a lane
 static_assert(kThreads == 256, "one thread per intensity builds the LUT");
 
 template <int BH, int BW>
 struct Geo {
-  static constexpr int S = BH * BW;                 // strip rows
-  static constexpr int N_OV = BH == 8 ? 1 : 2;      // overlap lines
-  static constexpr int NOV = N_OV * BW;             // overlap strip rows
-  static constexpr int WIN = 8 * S;                 // bytes of one window
-  static constexpr int WIN_UP = 8 * NOV;            // bytes of one up window
-  // One padding word per column: columns fall on distinct banks.
-  static constexpr int WSTRIDE = WIN + 4;
-  static constexpr int USTRIDE = WIN_UP + 4;
-  static constexpr int NP = S / kRowsPerPass;       // samples per thread
-  static_assert(S % kRowsPerPass == 0, "strip rows per thread");
+  static constexpr int S = BH * BW;             // bytes of one candidate
+  static constexpr int N_OV = BH == 8 ? 1 : 2;  // overlap lines
+  static constexpr int SU = N_OV * BW;          // bytes of one up candidate
+  static constexpr int G = kGroupRuns * kRun / BW;  // blocks of a group
+  static constexpr int NL = BH / kWarps;        // lines of a thread
+  static constexpr int CH = S / 16;             // 16-byte chunks a candidate
+  static constexpr int CU = SU / 8;             // 8-byte chunks an up candidate
+  // A staged window and its chunk of padding: neighbouring blocks' runs
+  // start on different banks.
+  static constexpr int WSTRIDE = 8 * S + 16;
+  static constexpr int USTRIDE = 8 * SU + 8;
+  static_assert(BH % kWarps == 0, "whole lines a warp");
 };
 
 struct Args {
@@ -81,8 +104,8 @@ struct Args {
   const int* signu;
   const int* segs;      // (nseg,) segment starts
   const int* segd;      // (nseg,) segment deltas
-  const int8_t* win;    // (156, 8, bh, bw)
-  const int8_t* win_up; // (156, 8, n_ov, bw)
+  const int8_t* win;    // (156, 8, bh, bw), 16-byte aligned
+  const int8_t* win_up; // (156, 8, n_ov, bw), 8-byte aligned
   const int* scale_shift;
   const int* imin;
   const int* imax;
@@ -90,162 +113,214 @@ struct Args {
 };
 
 template <int N_OV>
-__device__ __forceinline__ int overlap(int P, int Pu, int y) {
-  const int oc1 = N_OV == 1 ? 20 : (y == 0 ? 12 : 24);
-  const int oc2 = N_OV == 1 ? 20 : (y == 0 ? 24 : 12);
+__device__ __forceinline__ int overlap(int P, int Pu, int j) {
+  const int oc1 = N_OV == 1 ? 20 : (j == 0 ? 12 : 24);
+  const int oc2 = N_OV == 1 ? 20 : (j == 0 ? 24 : 12);
   return (P * oc1 + Pu * oc2 + 16) >> 5;
 }
 
 template <typename T, int BH, int BW>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 grain_tiled_kernel(const Args a) {
   using G = Geo<BH, BW>;
-  __shared__ __align__(16) int8_t s_win[kGroup * G::WSTRIDE];
-  __shared__ __align__(16) int8_t s_up[kGroup * G::USTRIDE];
-  __shared__ int16_t s_P[G::S * kGroup];    // pre-deblock samples [s][col]
+  __shared__ __align__(16) int8_t s_win[G::G * G::WSTRIDE];
+  __shared__ __align__(16) int8_t s_up[G::G * G::USTRIDE];
   __shared__ int s_lut[256];                // packed (sc | pi << 9)
-  __shared__ int s_halo[2][BH];             // l0 of column c0-1, r0 of c0+G
-  __shared__ int s_sign[kGroup], s_signu[kGroup];
+  __shared__ int s_widx[G::G], s_sign[G::G], s_widxu[G::G], s_signu[G::G];
+  __shared__ unsigned s_cand[kWarps];       // candidates the LUT selects
 
-  const T* in = static_cast<const T*>(a.in);
-  T* out = static_cast<T*>(a.out);
   const int t = threadIdx.x;
+  const int lane = t & 31;
+  const int warp = t >> 5;
   const int fr = blockIdx.x / a.groups;     // f * R + r
-  const int c0 = (blockIdx.x - fr * a.groups) * kGroup;
-  const int r = fr % a.R;
+  const int grp = blockIdx.x - fr * a.groups;
+  const bool blend = fr % a.R > 0;
   const int C = a.C;
-  const int ncol = min(kGroup, C - c0);
-  const size_t strip = size_t(fr) * G::S * C;
-  const size_t cols = size_t(fr) * C;       // this block row's column info
+  const int Wp = C * BW;
+  const int runs = Wp / kRun;
+  const int c0 = grp * G::G;                // the group's first block column
+  const int q = grp * kGroupRuns + lane;
+  const bool live = q < runs;
+  const int x0 = min(q, runs - 1) * kRun;
+  const int b = x0 / BW - c0;               // the run's block in the group
+  const int i0 = x0 % BW;                   // 0, or 8 in a 16-wide block
+  const size_t cols = size_t(fr) * C;       // this block row's offsets
+  const T* src = static_cast<const T*>(a.in) + size_t(fr) * BH * Wp;
+  T* dst = static_cast<T*>(a.out) + size_t(fr) * BH * Wp;
+  // The end lanes' neighbour column, in another group.
+  const bool edge = (lane == 0 && x0 > 0) ||
+                    (lane == kGroupRuns - 1 && x0 + kRun < Wp);
+  const int xe = lane == 0 ? x0 - 1 : x0 + kRun;
 
-  if (t < ncol) {
-    s_sign[t] = __ldg(a.sign + cols + c0 + t);
-    s_signu[t] = __ldg(a.signu + cols + c0 + t);
+  RunBits<T> bits[G::NL];
+  int pe[G::NL];
+#pragma unroll
+  for (int m = 0; m < G::NL; ++m) {
+    const T* row = src + size_t(warp + kWarps * m) * Wp;
+    bits[m].load(row + x0);
+    pe[m] = edge ? int(__ldg(row + xe)) : 0;
   }
   {
     int acc = 0;
     for (int k = 0; k < a.nseg; ++k)
       acc += t >= __ldg(a.segs + k) ? __ldg(a.segd + k) : 0;
     s_lut[t] = acc;
+    const unsigned cand = __reduce_or_sync(0xFFFFFFFFu, 1u << (acc >> 9));
+    if (lane == 0) s_cand[warp] = cand;
   }
-  constexpr int WW = G::WIN / 4;
-  for (int k = t; k < ncol * WW; k += kThreads) {
-    const int cl = k / WW;
-    const int w = k - cl * WW;
-    const int* src = reinterpret_cast<const int*>(
-        a.win + size_t(__ldg(a.widx + cols + c0 + cl)) * G::WIN);
-    *reinterpret_cast<int*>(s_win + cl * G::WSTRIDE + 4 * w) = __ldg(src + w);
-  }
-  if (r > 0) {
-    constexpr int WU = G::WIN_UP / 4;
-    for (int k = t; k < ncol * WU; k += kThreads) {
-      const int cl = k / WU;
-      const int w = k - cl * WU;
-      const int* src = reinterpret_cast<const int*>(
-          a.win_up + size_t(__ldg(a.widxu + cols + c0 + cl)) * G::WIN_UP);
-      *reinterpret_cast<int*>(s_up + cl * G::USTRIDE + 4 * w) =
-          __ldg(src + w);
-    }
+  const int nblk = min(G::G, C - c0);       // the group's blocks
+  if (t < nblk) {
+    s_widx[t] = __ldg(a.widx + cols + c0 + t);
+    s_sign[t] = __ldg(a.sign + cols + c0 + t);
+    s_widxu[t] = __ldg(a.widxu + cols + c0 + t);
+    s_signu[t] = __ldg(a.signu + cols + c0 + t);
   }
   __syncthreads();
 
-  // Phase 1: pre-deblock samples of the group into shared memory; each
-  // thread keeps its samples and scales in registers for phase 2.
-  const int bs = a.bs;
-  const int cl = t % kGroup;
-  const int row0 = t / kGroup;
-  const int c = c0 + cl;
-  const bool active = cl < ncol;
-  int xv[G::NP], scv[G::NP];
+  // Stage the candidates the LUT selects of every block of the group, 16
+  // bytes (up: 8) a load.
+  unsigned cand = 0u;
 #pragma unroll
-  for (int k = 0; k < G::NP; ++k) {
-    const int s = row0 + k * kRowsPerPass;
-    xv[k] = 0;
-    scv[k] = 0;
-    if (active) {
-      const int x = int(__ldg(in + strip + size_t(s) * C + c));
-      const int acc = s_lut[(x >> bs) & 0xFF];
-      const int pi = acc >> 9;
-      xv[k] = x;
-      scv[k] = acc & 511;
-      int P = int(s_win[cl * G::WSTRIDE + pi * G::S + s]) * s_sign[cl];
-      if (s < G::NOV && r > 0) {
-        const int Pu = int(s_up[cl * G::USTRIDE + pi * G::NOV + s]) *
-                       s_signu[cl];
-        P = overlap<G::N_OV>(P, Pu, s / BW);
-      }
-      s_P[s * kGroup + cl] = int16_t(P);
+  for (int w = 0; w < kWarps; ++w) cand |= s_cand[w];
+  for (int k = t; k < nblk * 8 * G::CH; k += kThreads) {
+    const int blk = k / (8 * G::CH);
+    const int part = k - blk * (8 * G::CH);   // candidate * CH + chunk
+    if ((cand >> (part / G::CH)) & 1u) {
+      const int4* w = reinterpret_cast<const int4*>(
+          a.win + size_t(s_widx[blk]) * (8 * G::S));
+      *reinterpret_cast<int4*>(s_win + blk * G::WSTRIDE + 16 * part) =
+          __ldg(w + part);
     }
   }
-  // Halo: the edge sample of each line in the neighbouring groups' columns,
-  // with that column's own window, sign and pixel (windows read from L2).
-  if (t < 2 * BH) {
-    const bool left = t < BH;
-    const int y = left ? t : t - BH;
-    const int hc = left ? c0 - 1 : c0 + kGroup;
-    if (hc >= 0 && hc < C) {
-      const int s = y * BW + (left ? BW - 1 : 0);
-      const int x = int(__ldg(in + strip + size_t(s) * C + hc));
-      const int pi = s_lut[(x >> bs) & 0xFF] >> 9;
-      int P = int(__ldg(a.win + size_t(__ldg(a.widx + cols + hc)) * G::WIN +
-                        pi * G::S + s)) *
-              __ldg(a.sign + cols + hc);
-      if (s < G::NOV && r > 0) {
-        const int Pu =
-            int(__ldg(a.win_up + size_t(__ldg(a.widxu + cols + hc)) *
-                                     G::WIN_UP +
-                      pi * G::NOV + s)) *
-            __ldg(a.signu + cols + hc);
-        P = overlap<G::N_OV>(P, Pu, y);
+  if (blend) {
+    for (int k = t; k < nblk * 8 * G::CU; k += kThreads) {
+      const int blk = k / (8 * G::CU);
+      const int part = k - blk * (8 * G::CU);
+      if ((cand >> (part / G::CU)) & 1u) {
+        const uint2* w = reinterpret_cast<const uint2*>(
+            a.win_up + size_t(s_widxu[blk]) * (8 * G::SU));
+        *reinterpret_cast<uint2*>(s_up + blk * G::USTRIDE + 8 * part) =
+            __ldg(w + part);
       }
-      s_halo[left ? 0 : 1][y] = P;
     }
   }
   __syncthreads();
-  if (!active) return;
 
-  // Phase 2: deblock at inner block-column edges, scale, add, clip.
+  // Grain samples, overlap, deblock at block edges, scale, add, clip.
+  const int bs = a.bs;
   const int ss = __ldg(a.scale_shift);
   const int bias = 1 << (ss - 1);
   const int lo = __ldg(a.imin) << bs;
   const int hi = __ldg(a.imax) << bs;
-#pragma unroll
-  for (int k = 0; k < G::NP; ++k) {
-    const int s = row0 + k * kRowsPerPass;
-    const int i = s % BW;
-    int P = s_P[s * kGroup + cl];
-    if (i == 0 && c > 0) {
-      const int l0 = cl > 0 ? int(s_P[(s + BW - 1) * kGroup + cl - 1])
-                            : s_halo[0][s / BW];
-      P = (l0 + 3 * P + int(s_P[(s + 1) * kGroup + cl]) + 2) >> 2;
-    } else if (i == BW - 1 && c < C - 1) {
-      const int r0 = cl < kGroup - 1
-                         ? int(s_P[(s - (BW - 1)) * kGroup + cl + 1])
-                         : s_halo[1][s / BW];
-      P = (int(s_P[(s - 1) * kGroup + cl]) + 3 * P + r0 + 2) >> 2;
+  const int sg = s_sign[b];
+  const int sgu = s_signu[b];
+  const int8_t* wv = s_win + b * G::WSTRIDE + i0;
+  const int8_t* wu = s_up + b * G::USTRIDE + i0;
+  // The end lanes' neighbour block, its window read from L2.
+  int sge = 0, sgue = 0;
+  const int8_t* we = a.win;
+  const int8_t* weu = a.win_up;
+  if (edge) {
+    const int ce = xe / BW;
+    const int ie = xe % BW;
+    sge = __ldg(a.sign + cols + ce);
+    we += size_t(__ldg(a.widx + cols + ce)) * (8 * G::S) + ie;
+    if (blend) {
+      sgue = __ldg(a.signu + cols + ce);
+      weu += size_t(__ldg(a.widxu + cols + ce)) * (8 * G::SU) + ie;
     }
-    const int v = xv[k] + ((scv[k] * P + bias) >> ss);
-    out[strip + size_t(s) * C + c] = T(min(max(v, lo), hi));
+  }
+  const bool left = i0 == 0 && x0 > 0;
+  const bool right = i0 + kRun == BW && x0 + kRun < Wp;
+#pragma unroll
+  for (int m = 0; m < G::NL; ++m) {
+    const int j = warp + kWarps * m;
+    const bool ov = blend && j < G::N_OV;
+    int acc[kRun], P[kRun];
+#pragma unroll
+    for (int k = 0; k < kRun; ++k) {
+      acc[k] = s_lut[(bits[m][k] >> bs) & 0xFF];
+      const int pi = acc[k] >> 9;
+      P[k] = sg * int(wv[pi * G::S + j * BW + k]);
+      if (ov)
+        P[k] = overlap<G::N_OV>(
+            P[k], sgu * int(wu[pi * G::SU + j * BW + k]), j);
+    }
+    int Pe = 0;
+    if (edge) {
+      const int pi = s_lut[(pe[m] >> bs) & 0xFF] >> 9;
+      Pe = sge * int(__ldg(we + pi * G::S + j * BW));
+      if (ov)
+        Pe = overlap<G::N_OV>(
+            Pe, sgue * int(__ldg(weu + pi * G::SU + j * BW)), j);
+    }
+    const int from_left = __shfl_up_sync(0xFFFFFFFFu, P[kRun - 1], 1);
+    const int from_right = __shfl_down_sync(0xFFFFFFFFu, P[0], 1);
+    const int Pl = lane == 0 ? Pe : from_left;
+    const int Pr = lane == kGroupRuns - 1 ? Pe : from_right;
+    const int first = (Pl + 3 * P[0] + P[1] + 2) >> 2;
+    const int last = (P[kRun - 2] + 3 * P[kRun - 1] + Pr + 2) >> 2;
+    if (left) P[0] = first;
+    if (right) P[kRun - 1] = last;
+    int o[kRun];
+#pragma unroll
+    for (int k = 0; k < kRun; ++k)
+      o[k] = min(max(bits[m][k] + (((acc[k] & 511) * P[k] + bias) >> ss), lo),
+                 hi);
+    if (live) store_run<T>(dst + size_t(j) * Wp + x0, o);
   }
 }
 
-template <int BH, int BW>
-void launch(int elem_bytes, const Args& a, unsigned blocks, cudaStream_t st) {
-  if (elem_bytes == 1)
-    grain_tiled_kernel<uint8_t, BH, BW><<<blocks, kThreads, 0, st>>>(a);
+// Launch the instance for (bh, bw, n_ov); false if there is none.
+template <typename T>
+bool launch(int bh, int bw, int n_ov, const Args& a, unsigned blocks,
+            cudaStream_t st) {
+  if (bh == 16 && bw == 16 && n_ov == 2)
+    grain_tiled_kernel<T, 16, 16><<<blocks, kThreads, 0, st>>>(a);
+  else if (bh == 16 && bw == 8 && n_ov == 2)
+    grain_tiled_kernel<T, 16, 8><<<blocks, kThreads, 0, st>>>(a);
+  else if (bh == 8 && bw == 8 && n_ov == 1)
+    grain_tiled_kernel<T, 8, 8><<<blocks, kThreads, 0, st>>>(a);
   else
-    grain_tiled_kernel<uint16_t, BH, BW><<<blocks, kThreads, 0, st>>>(a);
+    return false;
+  return true;
+}
+
+template <typename T, int BH, int BW>
+int instance_info(int* regs, int* smem, int* local, int* blocks) {
+  const auto fn = grain_tiled_kernel<T, BH, BW>;
+  cudaFuncAttributes at;
+  cudaError_t e = cudaFuncGetAttributes(&at, fn);
+  if (e != cudaSuccess) return int(e);
+  *regs = at.numRegs;
+  *smem = int(at.sharedSizeBytes);
+  *local = int(at.localSizeBytes);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                           kThreads, 0));
+}
+
+template <typename T>
+int info(int bh, int bw, int* regs, int* smem, int* local, int* blocks) {
+  if (bh == 16 && bw == 16)
+    return instance_info<T, 16, 16>(regs, smem, local, blocks);
+  if (bh == 16 && bw == 8)
+    return instance_info<T, 16, 8>(regs, smem, local, blocks);
+  if (bh == 8 && bw == 8)
+    return instance_info<T, 8, 8>(regs, smem, local, blocks);
+  return int(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// Grain the tiled strips of one plane of F frames.  `in`/`out`: (F, R, S, C)
-// samples of `elem_bytes` bytes (1: uint8, 2: uint16), S = bh*bw;
-// `widx`/`sign`/`widxu`/`signu`: (F, R, 1, C) int32; `segs`/`segd`: (nseg,)
-// int32; `win`: (156, 8, bh, bw) and `win_up`: (156, 8, n_ov, bw) int8, 4-byte
-// aligned; `scale_shift`/`imin`/`imax`: one int32 each.  (bh, bw, n_ov) is
-// (16, 16, 2), (16, 8, 2) or (8, 8, 1).  All pointers are device pointers.
-// Launches on `stream` and returns cudaGetLastError().
+// Grain one plane of F frames.  `in`/`out`: (F, R*bh, C*bw) samples of
+// `elem_bytes` bytes (1: uint8, 2: uint16), aligned to 8 samples (a thread's
+// run); `widx`/`sign`/`widxu`/`signu`: (F, R, 1, C) int32; `segs`/`segd`:
+// (nseg,) int32; `win`: (156, 8, bh, bw) int8, 16-byte aligned, and `win_up`:
+// (156, 8, n_ov, bw) int8, 8-byte aligned; `scale_shift`/`imin`/`imax`: one
+// int32 each.  (bh, bw, n_ov) is (16, 16, 2), (16, 8, 2) or (8, 8, 1).  All
+// pointers are device pointers.  Launches on `stream` and returns
+// cudaGetLastError(), or cudaErrorInvalidValue for an argument out of range
+// or a misaligned pointer.
 extern "C" int vfg_grain_tiled(const void* in, void* out, int elem_bytes,
                                const void* widx, const void* sign,
                                const void* widxu, const void* signu,
@@ -257,6 +332,11 @@ extern "C" int vfg_grain_tiled(const void* in, void* out, int elem_bytes,
                                void* stream) {
   if (frames < 1 || rows < 1 || cols < 1 || nseg < 0 || (bs != 0 && bs != 2) ||
       (elem_bytes != 1 && elem_bytes != 2))
+    return int(cudaErrorInvalidValue);
+  const uintptr_t planes =
+      reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out);
+  if (planes % (kRun * elem_bytes) || reinterpret_cast<uintptr_t>(win) % 16 ||
+      reinterpret_cast<uintptr_t>(win_up) % 8)
     return int(cudaErrorInvalidValue);
   Args a;
   a.in = in;
@@ -275,18 +355,29 @@ extern "C" int vfg_grain_tiled(const void* in, void* out, int elem_bytes,
   a.nseg = nseg;
   a.R = rows;
   a.C = cols;
-  a.groups = (cols + kGroup - 1) / kGroup;
+  const int runs = cols * bw / kRun;
+  a.groups = (runs + kGroupRuns - 1) / kGroupRuns;
   a.bs = bs;
   const long long blocks = (long long)frames * rows * a.groups;
   if (blocks > INT_MAX) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bh == 16 && bw == 16 && n_ov == 2)
-    launch<16, 16>(elem_bytes, a, unsigned(blocks), st);
-  else if (bh == 16 && bw == 8 && n_ov == 2)
-    launch<16, 8>(elem_bytes, a, unsigned(blocks), st);
-  else if (bh == 8 && bw == 8 && n_ov == 1)
-    launch<8, 8>(elem_bytes, a, unsigned(blocks), st);
-  else
-    return int(cudaErrorInvalidValue);
-  return int(cudaGetLastError());
+  const bool ok =
+      elem_bytes == 1
+          ? launch<uint8_t>(bh, bw, n_ov, a, unsigned(blocks), st)
+          : launch<uint16_t>(bh, bw, n_ov, a, unsigned(blocks), st);
+  return ok ? int(cudaGetLastError()) : int(cudaErrorInvalidValue);
+}
+
+// Registers per thread, static shared memory bytes per thread block (the
+// launch asks for no dynamic shared memory), local memory bytes per thread
+// (stack and spills) and thread blocks per SM (the occupancy calculator, at
+// kThreads threads) of the instance for `elem_bytes` and block `bh` x `bw`.
+// Returns the first CUDA error, or cudaSuccess.
+extern "C" int vfg_grain_tiled_info(int elem_bytes, int bh, int bw,
+                                    int* regs, int* smem, int* local,
+                                    int* blocks) {
+  if (elem_bytes == 1) return info<uint8_t>(bh, bw, regs, smem, local, blocks);
+  if (elem_bytes == 2)
+    return info<uint16_t>(bh, bw, regs, smem, local, blocks);
+  return int(cudaErrorInvalidValue);
 }

@@ -120,6 +120,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             i, i, i,                # frames, rows, cols
             i, i, i, i,             # bh, bw, n_ov, bs
             vp]                     # stream
+        lib.vfg_grain_tiled_info.restype = i
+        lib.vfg_grain_tiled_info.argtypes = [
+            i, i, i,                # elem_bytes, bh, bw
+            ctypes.POINTER(i), ctypes.POINTER(i),  # registers, static smem
+            ctypes.POINTER(i), ctypes.POINTER(i)]  # local bytes, blocks/SM
     elif name == "expand_words":
         lib.vfg_expand_words.restype = i
         lib.vfg_expand_words.argtypes = [

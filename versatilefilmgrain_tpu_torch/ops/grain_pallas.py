@@ -1,23 +1,27 @@
 """The tiled engine (``--engine pallas``): the hand-written CUDA kernel and its
 plain version.
 
-Port of the JAX package's ops/grain_pallas.py.  Each (frame, 16-luma-line
-block row) strip of a plane is processed in the tiled layout ``(S, C)``
-with ``S = bh*bw``: rows enumerate the in-block pixel ``y*bw + i``, columns
-the block column.  :func:`add_grain_batch_pallas` tiles each plane
-(:func:`_tile`), computes per-block window indices and signs
-(:func:`_offset_arrays`), grains the strips and untiles the result:
+Port of the JAX package's ops/grain_pallas.py.  The TPU kernel
+``_plane_pallas`` grains each (frame, 16-luma-line block row) strip of a
+plane in the tiled layout ``(S, C)`` with ``S = bh*bw``: rows enumerate the
+in-block pixel ``y*bw + i``, columns the block column.
+:func:`add_grain_batch_pallas` computes per-block window indices and signs
+(:func:`_offset_arrays`) and grains each plane:
 
 * on CUDA tensors with csrc/grain_tiled.cu (:func:`plane_tiled_cuda`, the
-  counterpart of the TPU kernel ``_plane_pallas``);
-* on CPU tensors with :func:`plane_tiled_plain`, the same strip function in
-  plain torch, which is also what the kernel is compared against on the card.
+  counterpart of ``_plane_pallas``), which reads and writes the natural
+  plane: the step tiles and untiles nothing;
+* on CPU tensors with :func:`plane_tiled_natural_plain`, which tiles the
+  plane (:func:`_tile`), runs :func:`plane_tiled_plain` -- the TPU kernel's
+  strip function in plain torch -- and untiles the result; it is also what
+  the kernel is compared against on the card.
 
 The TPU kernel fetches the 8 pattern candidates of every block's window with
 a one-hot int8 matrix product, its stand-in for a gather.  Neither version
 here does: the plain version indexes the window table, and the CUDA kernel
-stages each block column's window in shared memory.  The window tables keep
-the window-major (156, 8, rows, bw) layout of ``build_window_table``.
+stages in shared memory, of each block's window, the candidates the
+plane's LUT can select.  The window tables keep the window-major (156, 8,
+rows, bw) layout of ``build_window_table``.
 
 The config tables are runtime tensors (:func:`pallas_tables`): a config
 switch uploads new tables and builds nothing.
@@ -33,7 +37,7 @@ import torch
 from . import _kernels
 from . import lfsr
 from .grain_fast import build_segments, build_window_table
-from .grain_natural import _check_batch, _check_plane
+from .grain_natural import _check_batch, _check_plane, _rows_above
 from .offsets import block_offsets
 
 N_WINDOWS = 12 * 13
@@ -118,7 +122,7 @@ def _offset_arrays(states, states_up, c, csubx, csuby):
 
 
 # ---------------------------------------------------------------------------
-# The strip function: plain version and CUDA kernel
+# The strip function, its natural-plane form and the CUDA kernel
 # ---------------------------------------------------------------------------
 
 def plane_tiled_plain(xt, widx, sign, widxu, signu, segs, segd, win, win_up,
@@ -182,21 +186,41 @@ def plane_tiled_plain(xt, widx, sign, widxu, signu, segs, segd, win, win_up,
     return torch.clamp(x + g, imin << bs, imax << bs).to(xt.dtype)
 
 
-def plane_tiled_cuda(xt, widx, sign, widxu, signu, segs, segd, win, win_up,
+def plane_tiled_natural_plain(x, widx, sign, widxu, signu, segs, segd, win,
+                              win_up, *, bh, bw, n_ov, bs, scale_shift, imin,
+                              imax):
+    """:func:`plane_tiled_plain` on a natural plane: tile ``x`` (F, R*bh,
+    C*bw), grain the strips, untile.  Arguments as :func:`plane_tiled_cuda`;
+    the plain version of the kernel, on any device."""
+    F, R, _, C = widx.shape
+    xt = _tile(x, F, R, bh, C, bw)
+    return _untile(plane_tiled_plain(
+        xt, widx, sign, widxu, signu, segs, segd, win, win_up, bh=bh, bw=bw,
+        n_ov=n_ov, bs=bs, scale_shift=scale_shift, imin=imin, imax=imax),
+        F, R, bh, C, bw)
+
+
+def plane_tiled_cuda(x, widx, sign, widxu, signu, segs, segd, win, win_up,
                      *, bh, bw, n_ov, bs, scale_shift, imin, imax):
-    """Launch csrc/grain_tiled.cu on the strips of one plane; arguments as
-    :func:`plane_tiled_plain`, all on one CUDA device (``scale_shift``,
-    ``imin`` and ``imax`` as 0-d int32 device tensors or ints).  Returns the
-    new strips.  Adds one to ``plane_tiled_cuda.launches`` per launch."""
-    dev = xt.device
+    """Launch csrc/grain_tiled.cu on one plane of F frames; returns the new
+    plane.
+
+    x: (F, R*bh, C*bw) uint8/uint16, the natural padded plane; the other
+    arguments as :func:`plane_tiled_plain`, all on one CUDA device
+    (``scale_shift``, ``imin`` and ``imax`` as 0-d int32 device tensors or
+    ints).  Adds one to ``plane_tiled_cuda.launches`` per launch."""
+    dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"plane_tiled_cuda needs CUDA tensors, got {dev}")
-    if xt.dtype not in (torch.uint8, torch.uint16):
-        raise ValueError(f"strips must be uint8 or uint16, got {xt.dtype}")
+    if x.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"planes must be uint8 or uint16, got {x.dtype}")
     if (bh, bw, n_ov) not in _GEOMETRIES:
         raise ValueError(f"no tiled kernel for block {bh}x{bw}, n_ov {n_ov}")
-    F, R, S, C = xt.shape
-    _check_plane("xt", xt, (F, R, bh * bw, C), xt.dtype, dev)
+    if widx.dim() != 4:
+        raise ValueError(f"widx: expected (F, R, 1, C), got "
+                         f"{tuple(widx.shape)}")
+    F, R, _, C = widx.shape
+    _check_plane("x", x, (F, R * bh, C * bw), x.dtype, dev)
     for name, a in (("widx", widx), ("sign", sign), ("widxu", widxu),
                     ("signu", signu)):
         _check_plane(name, a, (F, R, 1, C), torch.int32, dev)
@@ -205,14 +229,19 @@ def plane_tiled_cuda(xt, widx, sign, widxu, signu, segs, segd, win, win_up,
         _check_plane(name, a, (nseg,), torch.int32, dev)
     _check_plane("win", win, (N_WINDOWS, 8, bh, bw), torch.int8, dev)
     _check_plane("win_up", win_up, (N_WINDOWS, 8, n_ov, bw), torch.int8, dev)
-    if win.data_ptr() % 4 or win_up.data_ptr() % 4:
-        raise ValueError("window tables must be 4-byte aligned")
+    if win.data_ptr() % 16 or win_up.data_ptr() % 8:
+        raise ValueError("window tables must be 16-byte (win) and 8-byte "
+                         "(win_up) aligned")
+    if x.data_ptr() % (8 * x.element_size()):
+        # a thread moves 8 samples as one vector: take a plane that starts
+        # off that grid (a view into a larger buffer) into a fresh one
+        x = x.clone()
     ss, lo, hi = (torch.as_tensor(a, dtype=torch.int32, device=dev)
                   for a in (scale_shift, imin, imax))
     lib = _kernels.load("grain_tiled")
-    out = torch.empty_like(xt)
+    out = torch.empty_like(x)
     rc = lib.vfg_grain_tiled(
-        xt.data_ptr(), out.data_ptr(), xt.element_size(),
+        x.data_ptr(), out.data_ptr(), x.element_size(),
         widx.data_ptr(), sign.data_ptr(), widxu.data_ptr(), signu.data_ptr(),
         segs.data_ptr(), segd.data_ptr(), nseg,
         win.data_ptr(), win_up.data_ptr(),
@@ -229,6 +258,23 @@ def plane_tiled_cuda(xt, widx, sign, widxu, signu, segs, segd, win, win_up,
 plane_tiled_cuda.launches = 0
 
 
+def grain_tiled_info(elem_bytes: int, bh: int, bw: int) -> dict:
+    """Registers per thread, static and dynamic shared memory bytes per
+    thread block, local memory bytes per thread (stack and spills) and
+    thread blocks per SM (the CUDA occupancy calculator) of
+    csrc/grain_tiled.cu's instance for ``elem_bytes`` (1 or 2) and block
+    ``bh`` x ``bw``.  Builds the kernel; needs a card."""
+    regs, smem, local, blocks = (ctypes.c_int() for _ in range(4))
+    rc = _kernels.load("grain_tiled").vfg_grain_tiled_info(
+        elem_bytes, bh, bw, ctypes.byref(regs), ctypes.byref(smem),
+        ctypes.byref(local), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"grain_tiled kernel info failed: CUDA error {rc}")
+    # the launch asks for no dynamic shared memory
+    return dict(registers=regs.value, static_smem=smem.value, dynamic_smem=0,
+                local_bytes=local.value, blocks_per_sm=blocks.value)
+
+
 # ---------------------------------------------------------------------------
 # The batched step
 # ---------------------------------------------------------------------------
@@ -240,9 +286,12 @@ def add_grain_batch_pallas(y, u, v, bases, bases_up, tables: dict, *,
     function).
 
     y: (F, R*16, C*16); u, v: (F, R*bh_c, C*bw_c), uint8 or uint16, padded
-    from height x width.  ``bases`` / ``bases_up``: F uint32 lattice bases
-    of each frame and of the block row above its first (ops/lfsr.py).  CUDA
-    tensors launch the kernel (or raise); CPU tensors take the plain version.
+    from height x width.  ``bases``: F uint32 lattice bases (ops/lfsr.py).
+    ``bases_up`` (the bases of the row above each frame's first block row)
+    is accepted for interface parity and only its length is checked: a
+    frame's first block row never blends, and every other row's upper row
+    is the previous row of the same lattice.  CUDA tensors launch the
+    kernel (or raise); CPU tensors take the plain version.
     """
     dev = y.device
     R, C = _check_batch(y, u, v, bases, tables, height, width)
@@ -250,37 +299,34 @@ def add_grain_batch_pallas(y, u, v, bases, bases_up, tables: dict, *,
         raise ValueError(f"{len(bases_up)} upper bases for {len(bases)} "
                          f"frames")
     if dev.type == "cpu":
-        strip_fn = plane_tiled_plain
+        plane_fn = plane_tiled_natural_plain
     elif dev.type == "cuda":
-        strip_fn = plane_tiled_cuda
+        plane_fn = plane_tiled_cuda
     else:
         raise ValueError(f"no grain kernel for device {dev}")
-    return _tiled_batch(y, u, v, bases, bases_up, tables, R=R, C=C, bs=bs,
-                        csubx=csubx, csuby=csuby, strip_fn=strip_fn)
+    return _tiled_batch(y, u, v, bases, tables, R=R, C=C, bs=bs, csubx=csubx,
+                        csuby=csuby, plane_fn=plane_fn)
 
 
-def _tiled_batch(y, u, v, bases, bases_up, tables, *, R, C, bs, csubx, csuby,
-                 strip_fn):
-    """The tiled step around ``strip_fn``: lattices, offsets, tile, strips,
-    untile.  ``chip_smoke.py`` and the card tests also run it with
-    :func:`plane_tiled_plain` on CUDA tensors to hold the kernel against its
-    plain version."""
-    F, dev = y.shape[0], y.device
-    lat = lfsr.state_lattice_torch(bases, R, C, dev)
-    row0u = lfsr.state_lattice_torch(bases_up, 1, C, dev)
-    lat_up = torch.cat([row0u, lat[:, :-1]], dim=1)
+def _tiled_batch(y, u, v, bases, tables, *, R, C, bs, csubx, csuby,
+                 plane_fn):
+    """The tiled step around ``plane_fn``: the lattice, the offsets, the
+    three planes.  ``chip_smoke.py`` and the card tests also run it with
+    :func:`plane_tiled_natural_plain` on CUDA tensors to hold the kernel
+    against its plain version."""
+    lat = lfsr.state_lattice_torch(bases, R, C, y.device)
+    lat_up = _rows_above(lat)
     out = []
     for c, plane in enumerate((y, u, v)):
-        args, kw = _strip_args(plane, c, lat, lat_up, tables, R=R, C=C,
-                               bs=bs, csubx=csubx, csuby=csuby)
-        out.append(_untile(strip_fn(*args, **kw), F, R, kw["bh"], C,
-                           kw["bw"]))
+        args, kw = _plane_args(plane, c, lat, lat_up, tables, bs=bs,
+                               csubx=csubx, csuby=csuby)
+        out.append(plane_fn(*args, **kw))
     return tuple(out)
 
 
-def _strip_args(plane, c, lat, lat_up, tables, *, R, C, bs, csubx, csuby):
-    """Arguments of the strip function for plane ``c`` of a batch: the
-    tiled strips, the offset arrays and the plane's tables, and the keyword
+def _plane_args(plane, c, lat, lat_up, tables, *, bs, csubx, csuby):
+    """Arguments of the plane function for plane ``c`` of a batch: the
+    plane, the offset arrays and the plane's tables, and the keyword
     geometry and scalars."""
     sc = tables["scalars"]
     if c == 0:
@@ -291,8 +337,7 @@ def _strip_args(plane, c, lat, lat_up, tables, *, R, C, bs, csubx, csuby):
         bh, bw, n_ov = tables["bh_c"], tables["bw_c"], tables["n_ov_c"]
         win, win_up = tables["win_chroma"], tables["win_chroma_up"]
         imin, imax = sc[3], sc[4]
-    args = (_tile(plane, plane.shape[0], R, bh, C, bw),
-            *_offset_arrays(lat, lat_up, c, csubx, csuby),
+    args = (plane, *_offset_arrays(lat, lat_up, c, csubx, csuby),
             tables["seg_starts"][c], tables["seg_deltas"][c], win, win_up)
     return args, dict(bh=bh, bw=bw, n_ov=n_ov, bs=bs, scale_shift=sc[0],
                       imin=imin, imax=imax)

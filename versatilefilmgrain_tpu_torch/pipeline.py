@@ -184,7 +184,7 @@ class GrainPipeline:
         plain engines on the CPU).  ``engine``: ``natural`` is
         the CUDA kernel (ops/grain_natural.py) and needs a CUDA device;
         ``pallas`` is the tiled engine (ops/grain_pallas.py): its CUDA
-        kernel on a CUDA device, its plain strip function on the CPU;
+        kernel on a CUDA device, its plain version on the CPU;
         ``ref`` and ``fast`` are the plain torch engine on ``device``;
         ``auto`` picks ``natural`` on CUDA and ``ref`` elsewhere."""
         if depth not in (8, 10):
