@@ -33,8 +33,8 @@ Phases, one result line each:
                  planes; K3 alone (and each plane's launch beside a copy of
                  the plane) and the plain version timed, the whole
                  tiled step timed beside the natural step with the kernels
-                 each launches (torch.profiler); registers, static and
-                 dynamic shared memory, local memory and thread blocks per
+                 each launches (torch.profiler); registers, static shared
+                 memory, local memory (none allowed) and thread blocks per
                  SM of each K3 instance, and the SASS counts of the uint16
                  16x16 one;
   8. tiled geometry -- phase 4's cases through the tiled kernel;
@@ -340,7 +340,7 @@ def main() -> int:
     from versatilefilmgrain_tpu_torch import GrainPipeline, cli
     from versatilefilmgrain_tpu_torch.ops import (_kernels, grain_natural,
                                                   grain_pallas)
-    from versatilefilmgrain_tpu_torch.tools import bench_tiled
+    from versatilefilmgrain_tpu_torch.tools import _harness as hz
     from versatilefilmgrain_tpu_torch.ops.grain_ref import plane_grain
     from versatilefilmgrain_tpu_torch.utils import yuv
 
@@ -541,7 +541,7 @@ def main() -> int:
     ms_tp2 = cuda_ms(run_tiled_plain, 5, warmup=1)
     ms_ts2 = cuda_ms(run_tiled_step, 20)
     ms_ns2 = cuda_ms(run_natural_step, 20)
-    prof = {name: bench_tiled._profile(fn, 5) for name, fn in
+    prof = {name: hz.profile(fn, 5) for name, fn in
             (("tiled", run_tiled_step), ("natural", run_natural_step))}
     # each plane's launch alone, beside a copy of the plane and its bound
     ms_planes = [(cuda_ms(lambda a=a, kw=kw: grain_pallas.plane_tiled_cuda(
@@ -571,13 +571,18 @@ def main() -> int:
         + ", ".join(f"{k} {v:.4f}" for k, v in
                     list(p["kernel_ms"].items())[:3])
         for name, p in prof.items()))
-    phase("tiled 4K", "K3 instances, registers / static / dynamic shared "
-          "memory bytes / local memory bytes per thread / thread blocks per "
-          "SM at 256 threads (occupancy calculator): " + ", ".join(
-              "uint{} {}x{} {registers} / {static_smem} / {dynamic_smem} / "
-              "{local_bytes} / {blocks_per_sm}".format(
-                  8 * eb, bh, bw, **grain_pallas.grain_tiled_info(eb, bh, bw))
-              for eb in (2, 1) for bh, bw, _ in grain_pallas._GEOMETRIES))
+    tinfo = {(eb, bh, bw): grain_pallas.grain_tiled_info(eb, bh, bw)
+             for eb in (2, 1) for bh, bw, _ in grain_pallas._GEOMETRIES}
+    for key, info in tinfo.items():
+        check(info["local_bytes"] == 0, f"the K3 instance (bytes, bh, bw) "
+              f"{key} uses local memory: {info}")
+    phase("tiled 4K", "K3 instances, registers / static shared memory bytes "
+          "(the launch asks for no dynamic) / local memory bytes per thread "
+          "(none allowed) / thread blocks per SM at 256 threads (occupancy "
+          "calculator): " + ", ".join(
+              "uint{} {}x{} {registers} / {static_smem} / {local_bytes} / "
+              "{blocks_per_sm}".format(8 * eb, bh, bw, **info)
+              for (eb, bh, bw), info in tinfo.items()))
     phase("tiled 4K", "K3's uint16 16x16 instance (luma): " + sass_counts(
         _kernels, "grain_tiled", "grain_tiled_kernelItLi16ELi16EE",
         keys=("LDG", "LDS", "STS", "STG", "ATOMS", "BAR", "SHFL", "LDL",
@@ -808,7 +813,6 @@ def main() -> int:
     phase("shard geometry", f"{ncase} cases passed")
 
     # 15. the per-stage budget kernel (K5)
-    from versatilefilmgrain_tpu_torch.tools import _harness as hz
     from versatilefilmgrain_tpu_torch.tools import probe_budget, probe_ohpipe
     bcounter = probe_budget.grain_plane_budget_cuda
     pcounter = probe_ohpipe.grain_plane_pipe_cuda

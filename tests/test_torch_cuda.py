@@ -266,8 +266,8 @@ def test_tiled_kernel_widths_match_plain(cols, depth, csub, cuda_device):
 def test_tiled_kernel_unaligned_planes(depth, cuda_device):
     """A plane whose pointer is not aligned to a thread's 8 samples is
     copied into an aligned one before K3's launch; it gives the aligned
-    plane's output.  Each instance reports its registers, shared memory,
-    local memory and blocks per SM."""
+    plane's output.  Each instance reports its registers, shared memory
+    and blocks per SM, and uses no local memory."""
     regs = regs_for(TORCH_PKG, "afgs1", depth, (2, 2))
     ptab = grain_pallas.pallas_tables(regs, cuda_device)
     rows, cols = 2, 33
@@ -293,7 +293,7 @@ def test_tiled_kernel_unaligned_planes(depth, cuda_device):
         info = grain_pallas.grain_tiled_info(u.element_size(), bh, bw)
         assert info["registers"] > 0 and info["blocks_per_sm"] >= 1, info
         assert info["static_smem"] >= 16 * 8 * bh * bw, info
-        assert info["dynamic_smem"] == 0 and info["local_bytes"] >= 0, info
+        assert info["local_bytes"] == 0, info
 
 
 def test_tiled_step_never_tiles_on_the_card(cuda_device, monkeypatch):

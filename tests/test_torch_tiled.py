@@ -26,9 +26,11 @@ from versatilefilmgrain_tpu.ops import grain_pallas as jgp
 from versatilefilmgrain_tpu.ops import lfsr as jlfsr
 from versatilefilmgrain_tpu.pipeline import GrainPipeline as JaxPipeline
 from versatilefilmgrain_tpu_torch import cli
-from versatilefilmgrain_tpu_torch.ops import grain_natural, grain_pallas
+from versatilefilmgrain_tpu_torch.ops import _kernels, grain_natural
+from versatilefilmgrain_tpu_torch.ops import grain_pallas
 from versatilefilmgrain_tpu_torch.ops import lfsr as tlfsr
 from versatilefilmgrain_tpu_torch.pipeline import GrainPipeline
+from versatilefilmgrain_tpu_torch.tools import bench_tiled, probe_tiled
 
 from torch_port_cases import (CFG_DIR, DEPTH_CSUB, JAX_PKG, KINDS, REPO,
                               TORCH_PKG, frame_bases, golden_output,
@@ -309,7 +311,35 @@ def test_wrapper_rejects_bad_inputs():
             y, *offs, tables["seg_starts"][0], tables["seg_deltas"][0],
             tables["win_luma"], tables["win_luma_up"], bh=16, bw=16, n_ov=2,
             bs=2, scale_shift=5, imin=16, imax=235)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        grain_pallas._launch_tiled(
+            y, *offs, tables["seg_starts"][0], tables["seg_deltas"][0],
+            tables["win_luma"], tables["win_luma_up"], bh=16, bw=16, n_ov=2,
+            bs=2, scale_shift=5, imin=16, imax=235,
+            defines=probe_tiled.VARIANTS["nostage"])
     assert grain_pallas.plane_tiled_cuda.launches == 0
+
+
+@pytest.mark.parametrize("name", sorted(probe_tiled.VARIANTS))
+def test_probe_variants_build_from_the_kernels_hooks(name):
+    """Each of tools/probe_tiled.py's variants sets hooks that
+    csrc/grain_tiled.cu defaults (so the engine's build has none of them),
+    into a library of its own; the kernel's own entry has no define."""
+    src, so = _kernels._paths("grain_tiled", probe_tiled.VARIANTS[name])
+    text = open(src).read()
+    for define in probe_tiled.VARIANTS[name]:
+        macro, value = define.split("=")
+        assert f"#ifndef {macro}\n#define {macro} " in text, define
+        assert int(value) > 0
+    assert (so == _kernels._paths("grain_tiled")[1]) == (name == "kernel")
+
+
+@pytest.mark.parametrize("tool", [bench_tiled, probe_tiled])
+def test_tiled_tools_refuse_cpu(tool, monkeypatch, capsys):
+    """Without a card the tiled engine's tools time nothing and exit 2."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main() == 2
+    assert "no CUDA device" in capsys.readouterr().err
 
 
 # (e) the pipeline -----------------------------------------------------------

@@ -66,23 +66,12 @@ int launch(const void* in, void* out, const uint32_t* words,
                                          blend0, st);
 }
 
-template <typename T, bool kLane>
-int info(int* regs, int* smem, int* local, int* blocks) {
-  const auto fn = grain_plane_kernel<T, kLane, 0>;
-  cudaFuncAttributes a;
-  cudaError_t e = cudaFuncGetAttributes(&a, fn);
-  if (e != cudaSuccess) return int(e);
-  *regs = a.numRegs;
-  *smem = int(a.sharedSizeBytes);
-  *local = int(a.localSizeBytes);
-  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
-                                                           kThreads, 0));
-}
-
 template <typename T>
 int info(int lane, int* regs, int* smem, int* local, int* blocks) {
-  return lane ? info<T, true>(regs, smem, local, blocks)
-              : info<T, false>(regs, smem, local, blocks);
+  return lane ? kernel_info(grain_plane_kernel<T, true, 0>, kThreads, regs,
+                            smem, local, blocks)
+              : kernel_info(grain_plane_kernel<T, false, 0>, kThreads, regs,
+                            smem, local, blocks);
 }
 
 }  // namespace

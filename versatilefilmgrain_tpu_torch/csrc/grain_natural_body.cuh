@@ -544,4 +544,22 @@ int launch_grain_plane(const T* in, T* out, const uint32_t* words,
   return int(cudaGetLastError());
 }
 
+// Registers per thread, static shared memory bytes per thread block, local
+// memory bytes per thread (stack and spills) and thread blocks per SM (the
+// occupancy calculator, at `threads` threads and no dynamic shared memory)
+// of the kernel `fn`.  Returns the first CUDA error, or cudaSuccess.  The
+// info entry points of K1 and K3 (grain_natural.cu, grain_tiled.cu).
+template <typename Fn>
+int kernel_info(Fn fn, int threads, int* regs, int* smem, int* local,
+                int* blocks) {
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return int(e);
+  *regs = a.numRegs;
+  *smem = int(a.sharedSizeBytes);
+  *local = int(a.localSizeBytes);
+  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
+                                                           threads, 0));
+}
+
 }  // namespace vfg

@@ -61,12 +61,30 @@
 // deblock neighbour belongs to another thread block: lane 0 also samples
 // column x0 - 1 and lane 31 column x0 + 8, that block's window read from L2.
 //
+// Probe hooks, off in the kernel itself: tools/probe_tiled.py builds
+// this file with -DVFG_TILED_MIN_BLOCKS=n (thread blocks per SM asked of
+// __launch_bounds__, 4 here) or -DVFG_TILED_PROBE=bit to time variants and
+// ablations of it:
+//   kAllCandidates   stage all 8 candidates of each window (same output)
+//   kNoStaging       stage nothing: window bytes are whatever shared memory
+//                    holds (wrong output)
+//   kFirstCandidate  every pixel reads candidate 0 of its window, its LUT
+//                    entry still read for the scale (wrong output)
+//   kCopyOnly        store the samples unchanged: no LUT, staging or grain
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (ops/_kernels.py does this at first use).
 
 #include <limits.h>
 
-#include "grain_natural_body.cuh"  // vfg::RunBits, vfg::store_run, vfg::kRun
+#include "grain_natural_body.cuh"  // vfg::RunBits, store_run, kRun, kernel_info
+
+#ifndef VFG_TILED_MIN_BLOCKS
+#define VFG_TILED_MIN_BLOCKS 4
+#endif
+#ifndef VFG_TILED_PROBE
+#define VFG_TILED_PROBE 0
+#endif
 
 namespace {
 
@@ -78,6 +96,14 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kGroupRuns = 32;  // runs of a thread block, one a lane
 static_assert(kThreads == 256, "one thread per intensity builds the LUT");
+
+enum : int {
+  kAllCandidates = 1,
+  kNoStaging = 2,
+  kFirstCandidate = 4,
+  kCopyOnly = 8,
+};
+constexpr int kProbe = VFG_TILED_PROBE;
 
 template <int BH, int BW>
 struct Geo {
@@ -120,7 +146,7 @@ __device__ __forceinline__ int overlap(int P, int Pu, int j) {
 }
 
 template <typename T, int BH, int BW>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, VFG_TILED_MIN_BLOCKS)
 grain_tiled_kernel(const Args a) {
   using G = Geo<BH, BW>;
   __shared__ __align__(16) int8_t s_win[G::G * G::WSTRIDE];
@@ -160,6 +186,16 @@ grain_tiled_kernel(const Args a) {
     bits[m].load(row + x0);
     pe[m] = edge ? int(__ldg(row + xe)) : 0;
   }
+  if constexpr ((kProbe & kCopyOnly) != 0) {
+#pragma unroll
+    for (int m = 0; m < G::NL; ++m) {
+      int o[kRun];
+#pragma unroll
+      for (int k = 0; k < kRun; ++k) o[k] = bits[m][k];
+      if (live) store_run<T>(dst + size_t(warp + kWarps * m) * Wp + x0, o);
+    }
+    return;
+  }
   {
     int acc = 0;
     for (int k = 0; k < a.nseg; ++k)
@@ -179,9 +215,10 @@ grain_tiled_kernel(const Args a) {
 
   // Stage the candidates the LUT selects of every block of the group, 16
   // bytes (up: 8) a load.
-  unsigned cand = 0u;
+  unsigned cand = (kProbe & kAllCandidates) ? 0xFFu : 0u;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) cand |= s_cand[w];
+  if constexpr ((kProbe & kNoStaging) != 0) cand = 0u;
   for (int k = t; k < nblk * 8 * G::CH; k += kThreads) {
     const int blk = k / (8 * G::CH);
     const int part = k - blk * (8 * G::CH);   // candidate * CH + chunk
@@ -240,7 +277,7 @@ grain_tiled_kernel(const Args a) {
 #pragma unroll
     for (int k = 0; k < kRun; ++k) {
       acc[k] = s_lut[(bits[m][k] >> bs) & 0xFF];
-      const int pi = acc[k] >> 9;
+      const int pi = (kProbe & kFirstCandidate) ? 0 : acc[k] >> 9;
       P[k] = sg * int(wv[pi * G::S + j * BW + k]);
       if (ov)
         P[k] = overlap<G::N_OV>(
@@ -248,7 +285,9 @@ grain_tiled_kernel(const Args a) {
     }
     int Pe = 0;
     if (edge) {
-      const int pi = s_lut[(pe[m] >> bs) & 0xFF] >> 9;
+      const int pi = (kProbe & kFirstCandidate)
+                         ? 0
+                         : s_lut[(pe[m] >> bs) & 0xFF] >> 9;
       Pe = sge * int(__ldg(we + pi * G::S + j * BW));
       if (ov)
         Pe = overlap<G::N_OV>(
@@ -271,43 +310,21 @@ grain_tiled_kernel(const Args a) {
   }
 }
 
-// Launch the instance for (bh, bw, n_ov); false if there is none.
-template <typename T>
-bool launch(int bh, int bw, int n_ov, const Args& a, unsigned blocks,
-            cudaStream_t st) {
-  if (bh == 16 && bw == 16 && n_ov == 2)
-    grain_tiled_kernel<T, 16, 16><<<blocks, kThreads, 0, st>>>(a);
-  else if (bh == 16 && bw == 8 && n_ov == 2)
-    grain_tiled_kernel<T, 16, 8><<<blocks, kThreads, 0, st>>>(a);
-  else if (bh == 8 && bw == 8 && n_ov == 1)
-    grain_tiled_kernel<T, 8, 8><<<blocks, kThreads, 0, st>>>(a);
-  else
-    return false;
-  return true;
-}
-
-template <typename T, int BH, int BW>
-int instance_info(int* regs, int* smem, int* local, int* blocks) {
-  const auto fn = grain_tiled_kernel<T, BH, BW>;
-  cudaFuncAttributes at;
-  cudaError_t e = cudaFuncGetAttributes(&at, fn);
-  if (e != cudaSuccess) return int(e);
-  *regs = at.numRegs;
-  *smem = int(at.sharedSizeBytes);
-  *local = int(at.localSizeBytes);
-  return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
-                                                           kThreads, 0));
-}
+using Kernel = void (*)(Args);
 
 template <typename T>
-int info(int bh, int bw, int* regs, int* smem, int* local, int* blocks) {
-  if (bh == 16 && bw == 16)
-    return instance_info<T, 16, 16>(regs, smem, local, blocks);
-  if (bh == 16 && bw == 8)
-    return instance_info<T, 16, 8>(regs, smem, local, blocks);
-  if (bh == 8 && bw == 8)
-    return instance_info<T, 8, 8>(regs, smem, local, blocks);
-  return int(cudaErrorInvalidValue);
+Kernel instance_of(int bh, int bw) {
+  if (bh == 16 && bw == 16) return grain_tiled_kernel<T, 16, 16>;
+  if (bh == 16 && bw == 8) return grain_tiled_kernel<T, 16, 8>;
+  if (bh == 8 && bw == 8) return grain_tiled_kernel<T, 8, 8>;
+  return nullptr;
+}
+
+// The instance for `elem_bytes` and block `bh` x `bw`; null if there is none.
+Kernel instance(int elem_bytes, int bh, int bw) {
+  if (elem_bytes == 1) return instance_of<uint8_t>(bh, bw);
+  if (elem_bytes == 2) return instance_of<uint16_t>(bh, bw);
+  return nullptr;
 }
 
 }  // namespace
@@ -330,8 +347,9 @@ extern "C" int vfg_grain_tiled(const void* in, void* out, int elem_bytes,
                                const void* imax, int frames, int rows,
                                int cols, int bh, int bw, int n_ov, int bs,
                                void* stream) {
-  if (frames < 1 || rows < 1 || cols < 1 || nseg < 0 || (bs != 0 && bs != 2) ||
-      (elem_bytes != 1 && elem_bytes != 2))
+  const Kernel k = instance(elem_bytes, bh, bw);
+  if (k == nullptr || n_ov != (bh == 8 ? 1 : 2) || frames < 1 || rows < 1 ||
+      cols < 1 || nseg < 0 || (bs != 0 && bs != 2))
     return int(cudaErrorInvalidValue);
   const uintptr_t planes =
       reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out);
@@ -361,23 +379,19 @@ extern "C" int vfg_grain_tiled(const void* in, void* out, int elem_bytes,
   const long long blocks = (long long)frames * rows * a.groups;
   if (blocks > INT_MAX) return int(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool ok =
-      elem_bytes == 1
-          ? launch<uint8_t>(bh, bw, n_ov, a, unsigned(blocks), st)
-          : launch<uint16_t>(bh, bw, n_ov, a, unsigned(blocks), st);
-  return ok ? int(cudaGetLastError()) : int(cudaErrorInvalidValue);
+  k<<<unsigned(blocks), kThreads, 0, st>>>(a);
+  return int(cudaGetLastError());
 }
 
-// Registers per thread, static shared memory bytes per thread block (the
-// launch asks for no dynamic shared memory), local memory bytes per thread
-// (stack and spills) and thread blocks per SM (the occupancy calculator, at
-// kThreads threads) of the instance for `elem_bytes` and block `bh` x `bw`.
-// Returns the first CUDA error, or cudaSuccess.
+// Registers per thread, static shared memory bytes per thread block, local
+// memory bytes per thread (stack and spills) and thread blocks per SM (the
+// occupancy calculator, at kThreads threads) of the instance for
+// `elem_bytes` and block `bh` x `bw`.  Returns the first CUDA error, or
+// cudaSuccess.
 extern "C" int vfg_grain_tiled_info(int elem_bytes, int bh, int bw,
                                     int* regs, int* smem, int* local,
                                     int* blocks) {
-  if (elem_bytes == 1) return info<uint8_t>(bh, bw, regs, smem, local, blocks);
-  if (elem_bytes == 2)
-    return info<uint16_t>(bh, bw, regs, smem, local, blocks);
-  return int(cudaErrorInvalidValue);
+  const Kernel k = instance(elem_bytes, bh, bw);
+  if (k == nullptr) return int(cudaErrorInvalidValue);
+  return vfg::kernel_info(k, kThreads, regs, smem, local, blocks);
 }

@@ -3,7 +3,8 @@
 Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/kernels/`` at first use, and loaded
 with ``ctypes``.  A library is rebuilt when its source or any shared header
-(csrc/*.cuh) is newer.  Nothing here runs at import: the package imports on
+(csrc/*.cuh) is newer.  A probe may build a source with ``-D`` defines
+(its hooks), into a library of its own name.  Nothing here runs at import: the package imports on
 machines without a card or a CUDA toolkit, and only a launch on a CUDA tensor
 builds.  A failed build raises; there is no fallback.
 """
@@ -24,7 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict = {}
-build_logs: dict = {}   # source name -> nvcc's output (ptxas registers/smem)
+build_logs: dict = {}   # library name -> nvcc's output (ptxas registers/smem)
 
 
 def _nvcc() -> str:
@@ -40,9 +41,10 @@ def _nvcc() -> str:
                        "to build the CUDA kernels")
 
 
-def _paths(name: str) -> tuple[str, str]:
+def _paths(name: str, defines=()) -> tuple[str, str]:
+    tag = "".join(f".{d}" for d in defines)
     return (os.path.join(_PKG, "csrc", f"{name}.cu"),
-            os.path.join(_BUILD_DIR, f"lib{name}.so"))
+            os.path.join(_BUILD_DIR, f"lib{name}{tag}.so"))
 
 
 def stale(src: str, so: str) -> bool:
@@ -54,43 +56,61 @@ def stale(src: str, so: str) -> bool:
     return os.path.getmtime(so) <= max(os.path.getmtime(d) for d in deps)
 
 
-def build(names) -> None:
+def build(names, defines=()) -> None:
     """Compile each csrc/<name>.cu to build/kernels/lib<name>.so that is
     :func:`stale`: one nvcc per source, all started together, then wait for
-    every one.  Raises if any build fails."""
+    every one.  ``defines`` ("NAME=VALUE") go to every nvcc as ``-D`` and
+    into the libraries' names.  Raises if any build fails."""
     jobs = []
     for name in names:
-        src, so = _paths(name)
+        src, so = _paths(name, defines)
         if not stale(src, so):
             continue
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{so}.tmp{os.getpid()}"
-        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS,
+                                 *(f"-D{d}" for d in defines), "-o", tmp, src],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        jobs.append((name, src, so, tmp, proc))
+        jobs.append((os.path.basename(so)[3:-3], src, so, tmp, proc))
     failed = []
-    for name, src, so, tmp, proc in jobs:
-        build_logs[name] = proc.communicate()[0]
+    for lib, src, so, tmp, proc in jobs:
+        build_logs[lib] = proc.communicate()[0]
         if proc.returncode != 0:
             failed.append(f"nvcc failed to build {src} (exit "
-                          f"{proc.returncode}):\n{build_logs[name]}")
+                          f"{proc.returncode}):\n{build_logs[lib]}")
         else:
             os.replace(tmp, so)
     if failed:
         raise RuntimeError("\n".join(failed))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for csrc/<name>.cu, built on first use."""
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library for csrc/<name>.cu (built with ``defines``, see
+    :func:`build`), built on first use."""
+    key = (name, tuple(defines))
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(_paths(name)[1])
+            build([name], defines)
+            lib = ctypes.CDLL(_paths(name, defines)[1])
             _bind(name, lib)
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
+
+
+def kernel_info(entry, *args) -> dict:
+    """Registers per thread, static shared memory bytes per thread block,
+    local memory bytes per thread (stack and spills) and thread blocks per
+    SM of a kernel instance, from a library's info entry point
+    ``entry(*args, &registers, &smem, &local, &blocks)``.  Raises on a CUDA
+    error."""
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = entry(*args, *(ctypes.byref(o) for o in out))
+    if rc != 0:
+        raise RuntimeError(f"{entry.__name__} failed: CUDA error {rc}")
+    return dict(zip(("registers", "static_smem", "local_bytes",
+                     "blocks_per_sm"), (o.value for o in out)))
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:

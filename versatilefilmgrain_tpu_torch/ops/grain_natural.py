@@ -342,15 +342,9 @@ def grain_plane_info(elem_bytes: int, lane: bool) -> dict:
     SM (the CUDA occupancy calculator) of csrc/grain_natural.cu's instance
     for ``elem_bytes`` (1 or 2) and lattice or lane words.  Builds the
     kernel; needs a card."""
-    regs, smem, local, blocks = (ctypes.c_int() for _ in range(4))
-    rc = _kernels.load("grain_natural").vfg_grain_plane_info(
-        elem_bytes, int(lane), ctypes.byref(regs), ctypes.byref(smem),
-        ctypes.byref(local), ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(f"grain_natural kernel info failed: CUDA error "
-                           f"{rc}")
-    return dict(registers=regs.value, static_smem=smem.value,
-                local_bytes=local.value, blocks_per_sm=blocks.value)
+    return _kernels.kernel_info(
+        _kernels.load("grain_natural").vfg_grain_plane_info, elem_bytes,
+        int(lane))
 
 
 def _active(tables: dict):

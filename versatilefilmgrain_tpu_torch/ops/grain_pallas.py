@@ -209,6 +209,20 @@ def plane_tiled_cuda(x, widx, sign, widxu, signu, segs, segd, win, win_up,
     arguments as :func:`plane_tiled_plain`, all on one CUDA device
     (``scale_shift``, ``imin`` and ``imax`` as 0-d int32 device tensors or
     ints).  Adds one to ``plane_tiled_cuda.launches`` per launch."""
+    out = _launch_tiled(x, widx, sign, widxu, signu, segs, segd, win, win_up,
+                        bh=bh, bw=bw, n_ov=n_ov, bs=bs,
+                        scale_shift=scale_shift, imin=imin, imax=imax)
+    plane_tiled_cuda.launches += 1
+    return out
+
+
+plane_tiled_cuda.launches = 0
+
+
+def _launch_tiled(x, widx, sign, widxu, signu, segs, segd, win, win_up, *,
+                  bh, bw, n_ov, bs, scale_shift, imin, imax, defines=()):
+    """:func:`plane_tiled_cuda` without its count, on the library built
+    with ``defines`` (tools/probe_tiled.py's variants; none for K3)."""
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"plane_tiled_cuda needs CUDA tensors, got {dev}")
@@ -238,7 +252,7 @@ def plane_tiled_cuda(x, widx, sign, widxu, signu, segs, segd, win, win_up,
         x = x.clone()
     ss, lo, hi = (torch.as_tensor(a, dtype=torch.int32, device=dev)
                   for a in (scale_shift, imin, imax))
-    lib = _kernels.load("grain_tiled")
+    lib = _kernels.load("grain_tiled", defines)
     out = torch.empty_like(x)
     rc = lib.vfg_grain_tiled(
         x.data_ptr(), out.data_ptr(), x.element_size(),
@@ -251,28 +265,17 @@ def plane_tiled_cuda(x, widx, sign, widxu, signu, segs, segd, win, win_up,
     if rc != 0:
         raise RuntimeError(f"grain_tiled kernel launch failed: CUDA error "
                            f"{rc}")
-    plane_tiled_cuda.launches += 1
     return out
 
 
-plane_tiled_cuda.launches = 0
-
-
 def grain_tiled_info(elem_bytes: int, bh: int, bw: int) -> dict:
-    """Registers per thread, static and dynamic shared memory bytes per
-    thread block, local memory bytes per thread (stack and spills) and
-    thread blocks per SM (the CUDA occupancy calculator) of
-    csrc/grain_tiled.cu's instance for ``elem_bytes`` (1 or 2) and block
-    ``bh`` x ``bw``.  Builds the kernel; needs a card."""
-    regs, smem, local, blocks = (ctypes.c_int() for _ in range(4))
-    rc = _kernels.load("grain_tiled").vfg_grain_tiled_info(
-        elem_bytes, bh, bw, ctypes.byref(regs), ctypes.byref(smem),
-        ctypes.byref(local), ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(f"grain_tiled kernel info failed: CUDA error {rc}")
-    # the launch asks for no dynamic shared memory
-    return dict(registers=regs.value, static_smem=smem.value, dynamic_smem=0,
-                local_bytes=local.value, blocks_per_sm=blocks.value)
+    """Registers per thread, static shared memory bytes per thread block
+    (the launch asks for no dynamic shared memory), local memory bytes per
+    thread (stack and spills) and thread blocks per SM (the CUDA occupancy
+    calculator) of csrc/grain_tiled.cu's instance for ``elem_bytes`` (1 or
+    2) and block ``bh`` x ``bw``.  Builds the kernel; needs a card."""
+    return _kernels.kernel_info(
+        _kernels.load("grain_tiled").vfg_grain_tiled_info, elem_bytes, bh, bw)
 
 
 # ---------------------------------------------------------------------------

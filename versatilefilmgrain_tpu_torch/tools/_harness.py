@@ -1,6 +1,6 @@
 """Shared helpers of the probes: the headline shape, the register files of
-the three probe configs, frame bases, seeded planes, chained timing on the
-card and the timed, checked run of a probe's cases.
+the three probe configs, frame bases, seeded planes, chained and profiled
+timing on the card and the timed, checked run of a probe's cases.
 
 The counterpart of what the JAX probes import from ``bench.py`` and
 ``__graft_entry__.py``, on the port's own modules.
@@ -113,6 +113,38 @@ def chain_ms(step, state0, cargs, n: int = 20) -> float:
 
     chain()
     return sorted(chain() for _ in range(3))[1]
+
+
+def profile(step, n: int) -> dict:
+    """Device ms per step of each kernel by name (largest first), kernels
+    and copies launched per step, and the kernels' device ms per step, from
+    one chain of ``n`` calls of ``step()`` under torch.profiler, after one
+    warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as trace
+    step()
+    torch.cuda.synchronize()
+    with trace(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels, launches, copies = {}, 0, 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+            continue
+        launches += 1
+        name = (e.name.replace("(anonymous namespace)::", "")
+                .split("(")[0].split("<")[0].strip())
+        kernels[name] = kernels.get(name, 0.0) + e.time_range.elapsed_us()
+    return dict(
+        kernel_ms={k: v / n / 1e3 for k, v in sorted(kernels.items(),
+                                                      key=lambda kv: -kv[1])},
+        kernels_per_step=launches / n, copies_per_step=copies / n,
+        kernels_ms=sum(kernels.values()) / n / 1e3)
 
 
 def card() -> str:

@@ -1,122 +1,59 @@
 """Time the tiled engine's step (``--engine pallas``) and its kernel K3 on
 the card, beside the natural step, at the headline shape: 8 frames of
-3840x2160 10-bit 4:2:0, default config, seeded planes.
+3840x2160 10-bit 4:2:0, the CLI's built-in config, seeded planes.
 
-    python -m versatilefilmgrain_tpu_torch.tools.bench_tiled [--iters N]
+    python -m versatilefilmgrain_tpu_torch.tools.bench_tiled
 
 It drives only the engines' batched steps (``add_grain_batch_pallas``,
 ``add_grain_batch_natural``), whose signatures every version of the port
-shares, so it also times another checkout of the package: put that
-checkout's root first on ``PYTHONPATH`` and run this file by its path.
+shares, so it also times another checkout of the package: copy this file
+and ``_harness.py`` into that checkout's ``tools/`` and run it there.
 
 Prints one JSON line: the card and its power limit; per engine, the step's
-device ms (CUDA events around a chain of N steps, median of 3 chains after
-one warm-up chain); and from one profiled chain of N steps
-(torch.profiler), each kernel's device ms per step by name, the kernels and
-the copies launched per step, and the kernels' device ms per step.
-Exits 2 without a CUDA device.
+device ms (``_harness.chain_ms``: CUDA events around a chain of 20 steps,
+median of 3 chains after one warm-up chain); and from one profiled chain of
+20 steps (``_harness.profile``), each kernel's device ms per step by name,
+the kernels and the copies launched per step, and the kernels' device ms
+per step.  Exits 2 without a CUDA device.
 """
 
 from __future__ import annotations
 
-import argparse
+import functools
 import json
-import subprocess
 import sys
 
-import numpy as np
-import torch
+from . import _harness as hz
 
-W, H, F = 3840, 2160, 8
+ITERS = 20  # steps in a timed or profiled chain
 SEED = 5
 
 
-def _chain_ms(step, n):
-    def chain():
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            step()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
-
-    chain()
-    return sorted(chain() for _ in range(3))[1]
-
-
-def _profile(step, n):
-    """Device ms per step of each kernel by name, kernels and copies per
-    step, from one profiled chain of ``n`` steps."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    step()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            step()
-        torch.cuda.synchronize()
-    kernels, launches, copies = {}, 0, 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if e.name.startswith(("Memcpy", "Memset")):
-            copies += 1
-            continue
-        launches += 1
-        name = (e.name.replace("(anonymous namespace)::", "")
-                .split("(")[0].split("<")[0].strip())
-        kernels[name] = kernels.get(name, 0.0) + e.time_range.elapsed_us()
-    return dict(
-        kernel_ms={k: v / n / 1e3 for k, v in sorted(kernels.items(),
-                                                      key=lambda kv: -kv[1])},
-        kernels_per_step=launches / n, copies_per_step=copies / n,
-        kernels_ms=sum(kernels.values()) / n / 1e3)
-
-
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--iters", type=int, default=20,
-                    help="steps in a timed or profiled chain (default 20)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("bench_tiled: no CUDA device; it times the kernels on the card "
-              "only", file=sys.stderr)
+def main() -> int:
+    if hz.no_card("bench_tiled"):
         return 2
-    from versatilefilmgrain_tpu_torch import GrainPipeline
-    from versatilefilmgrain_tpu_torch.ops.grain_natural import (
-        add_grain_batch_natural, natural_tables)
-    from versatilefilmgrain_tpu_torch.ops.grain_pallas import (
-        add_grain_batch_pallas, pallas_tables)
-    dev = torch.device("cuda")
-    pipe = GrainPipeline(W, H, 10, 0, device=dev, engine="pallas")
-    regs = pipe.regs
-    rng = np.random.default_rng(SEED)
-    R, C = H // 16, W // 16
-    planes = [torch.from_numpy(rng.integers(0, 1024, (F, h, w),
-                                            dtype=np.uint16)).to(dev)
-              for h, w in ((R * 16, C * 16), (R * 8, C * 8), (R * 8, C * 8))]
-    bases, bases_up = (list(b) for b in zip(*(pipe.frame_bases(f)
-                                              for f in range(F))))
-    geo = dict(height=H, width=W, bs=regs.bs, csubx=regs.csubx,
+    from ..ops.grain_natural import add_grain_batch_natural, natural_tables
+    from ..ops.grain_pallas import add_grain_batch_pallas, pallas_tables
+    regs = hz.default_regs()
+    R, C = hz.H // 16, hz.W // 16
+    planes = hz.random_state(hz.FRAMES_BATCH, SEED, device="cuda")
+    bases, bases_up = hz.frame_bases(regs, hz.FRAMES_BATCH, R, C)
+    geo = dict(height=hz.H, width=hz.W, bs=regs.bs, csubx=regs.csubx,
                csuby=regs.csuby)
     steps = {
-        "tiled": (add_grain_batch_pallas, pallas_tables(regs, dev)),
-        "natural": (add_grain_batch_natural, natural_tables(regs, dev)),
+        "tiled": (add_grain_batch_pallas, pallas_tables(regs, "cuda")),
+        "natural": (add_grain_batch_natural, natural_tables(regs, "cuda")),
     }
     res = {}
     for name, (fn, tables) in steps.items():
-        def step(fn=fn, tables=tables):
-            return fn(*planes, bases, bases_up, tables, **geo)
-        res[name] = dict(step_ms=_chain_ms(step, args.iters),
-                         **_profile(step, args.iters))
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()[0]
-    print(json.dumps({"card": card, "shape": f"{F}x{W}x{H} 10-bit 4:2:0",
-                      "iters": args.iters, **res}), flush=True)
+        step = functools.partial(fn, **geo)
+        cargs = (bases, bases_up, tables)
+        res[name] = dict(
+            step_ms=hz.chain_ms(step, planes, cargs, n=ITERS),
+            **hz.profile(lambda: step(*planes, *cargs), ITERS))
+    print(json.dumps({"card": hz.card(),
+                      "shape": f"{hz.FRAMES_BATCH}x{hz.W}x{hz.H} 10-bit 4:2:0",
+                      "iters": ITERS, **res}), flush=True)
     return 0
 
 
