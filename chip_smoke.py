@@ -106,6 +106,21 @@ Phases, one result line each:
                  --device cuda under --engine auto (K1) and --engine pallas
                  (K3), each against --device cpu: equal exit codes and
                  output bytes; K1 and K3 launches counted.
+ 22. distributed 4K -- two fresh processes (tests/
+                 torch_distributed_worker.py) in one gloo group, both on
+                 cuda:0, grain 4 frames each of phase 6's file with
+                 --batch 4 at -s/--grain-offset 0 and 4: their shards
+                 concatenate to phase 6's output byte for byte, each rank
+                 gathered both sha256 (all_gather_object), each launched
+                 K1; their wall time beside phase 6's, then
+                 tools/bench_scaling --repeat 2 (every shard on the one
+                 card: not a scaling claim);
+ 23. designer -- FgcSeiDesign.apply_to_frame(device="cuda") at 1920x1080
+                 and 3840x2160 10-bit 4:2:0, the default design and an
+                 edited, masked one, == the same design through
+                 GrainPipeline(engine="ref") on the card, K1 launches
+                 counted, the preview's RGB finite in [0, 1]; a 1920x1080
+                 regrain timed (wall clock, median of 5).  No matplotlib.
 Then one JSON line describing the ten kernels (K6 in three rows, int8, bf16
 and f32), and as the last line
 {"ok": true, "device": {...}}.  Any failure raises: the script exits non-zero
@@ -637,7 +652,7 @@ def main() -> int:
           f"--engine pallas: {tlaunches} tiled kernel launches, output "
           f"byte-identical to --engine auto ({F * fbytes} bytes); wall "
           f"{twall:.3f} s with file I/O (card {card})")
-    shutil.rmtree(SCRATCH, ignore_errors=True)
+    os.remove(tout)   # phase 6's input and output stay for phase 22
 
     # 11. K2 at the main path's shape
     from versatilefilmgrain_tpu_torch.parallel import mesh as pmesh
@@ -1196,6 +1211,81 @@ def main() -> int:
           f"launches) and --engine pallas (K3, {fuzz_launches[1]} launches) "
           f"== --device cpu, exit codes and output bytes; "
           f"{time.perf_counter() - t0:.1f} s")
+
+    # 22. distributed 4K: two processes share the card over a gloo group
+    from torch_port_cases import edit_design, run_workers
+    from versatilefilmgrain_tpu_torch.tools import bench_scaling
+    inp = os.path.join(SCRATCH, "in_4k.yuv")
+    work = os.path.join(SCRATCH, "distributed")
+    os.makedirs(work)
+    parts, recs, dwall = run_workers(inp, work, W, H, F, F // 2, "cuda:0")
+    with open(os.path.join(SCRATCH, "out_4k.yuv"), "rb") as f:
+        check(parts == f.read(), "the 2-process shards differ from phase "
+              "6's 4K output")
+    wlaunches = [r["launches"] for r in recs]
+    check(all(n > 0 for n in wlaunches),
+          f"a worker never launched K1 (launches {wlaunches})")
+    phase("distributed 4K", f"two processes sharing one card (cuda:0, "
+          f"gloo group), {F} frames {W}x{H} 10-bit 4:2:0, {F // 2} each "
+          f"with --batch {F // 2} at -s/--grain-offset 0 and {F // 2}: "
+          f"shards == phase 6's output byte for byte, both ranks gathered "
+          f"both sha256; K1 launches {wlaunches}; wall {dwall:.3f} s from "
+          f"spawn to the last exit (run_file "
+          + " / ".join(f"{r['seconds']:.3f}" for r in recs)
+          + f" s) against the one-process CLI's {wall:.3f} s (phase 6, "
+          f"in-process, file I/O included); card {card}")
+    rc = bench_scaling.main(["--repeat", "2"])
+    check(rc == 0, f"bench_scaling --repeat 2 exit {rc}")
+
+    # 23. designer: the regrain on the card (K1) == the plain engine
+    from versatilefilmgrain_tpu_torch.designer import (FgcSeiDesign,
+                                                       read_yuv_frame,
+                                                       yuv_to_rgb)
+    dinp = os.path.join(SCRATCH, "in_1080.yuv")
+    make_input_yuv(dinp, 1920, 1080, 10, yuv.YUV_420, 4, seed=78)
+    dcfg = os.path.join(SCRATCH, "design.cfg")
+    dlaunches = {}
+    for (w, h, path) in ((1920, 1080, dinp), (W, H, inp)):
+        for edited, fi in ((False, 0), (True, 3)):
+            name = f"{w}x{h} {'edited, masked' if edited else 'default'}"
+            planes_ = read_yuv_frame(path, fi, w, h, 10, yuv.YUV_420)
+            d = edit_design(FgcSeiDesign()) if edited else FgcSeiDesign()
+            counter.launches = 0
+            got = d.apply_to_frame(planes_, w, h, 10, yuv.YUV_420,
+                                   frame_index=fi, device="cuda")
+            dlaunches[name] = counter.launches
+            check(dlaunches[name] > 0, f"designer {name}: K1 never launched")
+            d.save(dcfg, mask=True)   # the cfg make_pipeline grains with
+            ref = GrainPipeline(w, h, 10, yuv.YUV_420, gain=d.gain,
+                                configs=[dcfg], device=dev, engine="ref")
+            ref.maybe_switch_config(0)
+            want = ref.process_frame(planes_, fi)
+            for c, (a, b) in enumerate(zip(got, want)):
+                check(a.dtype == b.dtype and np.array_equal(a, b),
+                      f"designer {name} plane {c} differs from the plain "
+                      f"engine")
+            check(not np.array_equal(got[0], planes_[0]),
+                  f"designer {name}: no grain added")
+            rgb = yuv_to_rgb(*got, 10, yuv.YUV_420)
+            check(rgb.shape == (h, w, 3) and np.isfinite(rgb).all()
+                  and rgb.min() >= 0 and rgb.max() <= 1,
+                  f"designer {name}: preview RGB not finite in [0, 1]")
+    d = FgcSeiDesign()
+    planes_ = read_yuv_frame(dinp, 0, 1920, 1080, 10, yuv.YUV_420)
+    regrain_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        d.apply_to_frame(planes_, 1920, 1080, 10, yuv.YUV_420,
+                         device="cuda")
+        regrain_s.append(time.perf_counter() - t0)
+    phase("designer", "apply_to_frame(device=\"cuda\") == GrainPipeline("
+          "engine=\"ref\") on the card, 10-bit 4:2:0, K1 launches: "
+          + ", ".join(f"{k} {n}" for k, n in dlaunches.items())
+          + "; preview RGB finite in [0, 1]; regrain at 1920x1080 (wall "
+          "clock, pipeline construction included, 5 runs) median "
+          f"{sorted(regrain_s)[2] * 1e3:.3f} ms, runs "
+          + ", ".join(f"{t * 1e3:.3f}" for t in regrain_s)
+          + f" ms; card {card}")
     shutil.rmtree(SCRATCH, ignore_errors=True)
 
     def probe_row(name, source, replaces, mode, res, launches, err, plain,

@@ -4,7 +4,9 @@ the two probes of K1 (K5, csrc/probe_budget.cu; K4, csrc/probe_pipe.cu),
 the one-hot dot probes
 (K6-K8, csrc/probe_dot.cu and, for K6's int8, bf16 and TF32 products and the
 dense product, csrc/probe_dotconst.cu) and the relayout probes (K9, K10,
-csrc/probe_relayout.cu).
+csrc/probe_relayout.cu); then the paths that reach K1 from outside the
+CLI: two processes sharing the card over a gloo group, the global mesh,
+and the designer's regrain (and, with matplotlib, its GUI) against the CPU.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one (the kernel has no CPU mode; the CPU tests hold the plain
@@ -706,3 +708,82 @@ def test_relayout_launch_counters(cuda_device):
     _relayout.make_step("5d_transpose")(_relayout.view5d(y))
     torch.cuda.synchronize()
     assert (k9.launches, k10.launches) == (before[0] + 2, before[1] + 1)
+
+
+def _designer_input(tmp_path, width, height, frames):
+    import os
+    import sys
+    from torch_port_cases import REPO
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    from gen_input import make_input_yuv
+    inp = str(tmp_path / "in.yuv")
+    make_input_yuv(inp, width, height, 10, 0, frames)
+    return inp
+
+
+def test_two_process_distributed_on_card(cuda_device, tmp_path):
+    """Two processes share cuda:0 over a gloo group, each grains its shard
+    through K1; the shards concatenate to a --device cpu run of the whole
+    file, and each rank gathered both digests."""
+    from torch_port_cases import run_workers
+    from versatilefilmgrain_tpu_torch import GrainPipeline
+    inp = _designer_input(tmp_path, W, H, 6)
+    parts, recs, _ = run_workers(inp, str(tmp_path), W, H, 6, 2, "cuda:0")
+    assert all(r["launches"] > 0 for r in recs)
+    full = str(tmp_path / "full.yuv")
+    assert GrainPipeline(W, H, 10, 0, device="cpu").run_file(
+        inp, full, frames=6, batch=2) == 6
+    assert parts == open(full, "rb").read()
+
+
+def test_global_mesh_on_card(cuda_device):
+    from versatilefilmgrain_tpu_torch.parallel import distributed
+    m = distributed.make_global_mesh()
+    assert m.shape == {"data": torch.cuda.device_count(), "tile": 1}
+    assert all(d.type == "cuda" for row in m.devices for d in row)
+
+
+@pytest.mark.parametrize("edited", [False, True])
+def test_designer_on_card_matches_cpu(edited, cuda_device, tmp_path):
+    """The designer's regrain on the card (K1) equals it on the CPU."""
+    from torch_port_cases import edit_design
+    from versatilefilmgrain_tpu_torch.designer import (FgcSeiDesign,
+                                                       read_yuv_frame)
+    planes = read_yuv_frame(_designer_input(tmp_path, W, H, 3), 2, W, H, 10,
+                            0)
+    d = FgcSeiDesign()
+    if edited:
+        edit_design(d)
+    before = grain_natural.grain_plane_cuda.launches
+    got = d.apply_to_frame(planes, W, H, 10, 0, frame_index=2,
+                           device="cuda")
+    assert grain_natural.grain_plane_cuda.launches > before
+    want = d.apply_to_frame(planes, W, H, 10, 0, frame_index=2, device="cpu")
+    for c, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and np.array_equal(a, b), c
+
+
+def test_designer_app_on_card(cuda_device, tmp_path):
+    """The GUI (Agg) regrains on the card: its grained frame after a drag
+    equals the design's regrain on the CPU."""
+    pytest.importorskip("matplotlib")
+    import os
+    import types
+    os.environ["VFG_MPL_BACKEND"] = "Agg"
+    import matplotlib.pyplot as plt
+    from versatilefilmgrain_tpu_torch.designer.app import DesignerApp
+    app = DesignerApp(_designer_input(tmp_path, W, H, 2), W, H, 10, 0)
+    try:
+        ev = [types.SimpleNamespace(inaxes=app.ax_edit, xdata=20, ydata=y,
+                                    button=1, dblclick=False, key=None,
+                                    x=0.0, y=0.0, step=0) for y in (200, 150)]
+        app._on_press(ev[0])
+        app._on_motion(ev[1])
+        app._on_release(ev[1])
+        assert app.design.values[0][0][0] == 150
+        want = app.design.apply_to_frame(app.planes, W, H, 10, 0,
+                                         device="cpu")
+        for c, (a, b) in enumerate(zip(app.grained, want)):
+            assert np.array_equal(a, b), c
+    finally:
+        plt.close(app.fig)

@@ -6,10 +6,16 @@ that package's own modules, so both sides of a comparison run their own host
 code on identical inputs.
 """
 
+import hashlib
 import importlib
 import importlib.util
+import json
 import os
 import random
+import socket
+import subprocess
+import sys
+import time
 
 import numpy as np
 
@@ -204,3 +210,63 @@ def random_planes(seed, depth, R, C, csub, frames=None):
                  for shape in ((R * 16, C * 16),
                                (R * (16 // csuby), C * (16 // csubx)),
                                (R * (16 // csuby), C * (16 // csubx))))
+
+
+def edit_design(d):
+    """The designer edits both packages are held to: interval 2 of luma
+    split at 70 and its upper half toggled off, two scales changed, another
+    log2 scale factor and gain.  Returns ``d``."""
+    if not d.split(0, 2, 70):
+        raise ValueError("the design's luma interval 2 does not hold 70")
+    d.toggle(0, 3)
+    d.values[0][0][0] = 200
+    d.values[1][1][0] = 40
+    d.log2_scale_factor = 6
+    d.gain = 80
+    return d
+
+
+def run_workers(inp, outdir, width, height, frames, batch, device,
+                nproc=2, timeout=600):
+    """Spawn ``nproc`` fresh interpreters of tests/torch_distributed_worker.py
+    on one localhost rendezvous, grain ``frames`` 10-bit 4:2:0 frames of
+    ``inp`` in contiguous shards on ``device`` and wait for them.  Raises
+    unless every worker exits 0 and every rank gathered every shard's
+    sha256 in shard order.  Returns (the shards' bytes concatenated, each
+    rank's gathered record, wall seconds from spawn to the last exit)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=REPO)
+    worker = os.path.join(REPO, "tests", "torch_distributed_worker.py")
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, worker, coord, str(nproc), str(pid), inp,
+         str(outdir), str(width), str(height), str(frames), str(batch),
+         device], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pid in range(nproc)]
+    try:
+        logs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for pid, (p, (out, err)) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"worker {pid} exit {p.returncode}:\n{out}\n"
+                               f"{err}")
+    parts = []
+    for pid in range(nproc):
+        with open(os.path.join(outdir, f"out_{pid}.yuv"), "rb") as f:
+            parts.append(f.read())
+    digests = [hashlib.sha256(p).hexdigest() for p in parts]
+    recs = []
+    for pid in range(nproc):
+        with open(os.path.join(outdir, f"gathered_{pid}.json")) as f:
+            recs.append(json.load(f))
+        if recs[-1]["pid"] != pid or recs[-1]["digests"] != digests:
+            raise RuntimeError(f"rank {pid} gathered {recs[-1]}, expected "
+                               f"the digests {digests}")
+    return b"".join(parts), recs, seconds
