@@ -44,7 +44,10 @@ Phases, one result line each:
                  byte-identical to phase 6's;
  11. words 4K -- the lane-word kernel (K2, csrc/expand_words.cu) against its
                  plain version at phase 3's shape, exact on all three
-                 planes; both timed;
+                 planes, on luma alone and on the two chroma planes; its
+                 launch plan; K2 and the plain version timed in turns with
+                 chains of 200 launches an event pair, and each one's device
+                 time (torch.profiler);
  12. stream 4K -- add_grain_batch_natural with word_expand "xla" (lane words
                  from the plain expansion) and "pallas" (from K2) == the
                  lattice path == the plain version; each step and K1 alone
@@ -62,10 +65,15 @@ Phases, one result line each:
                  afgs1_test1 cases; then the budget table at 4K for the
                  default, sei_ar and afgs1 configs (the probe's run_config,
                  launches counted);
- 16. pipe     -- the prefetch probe kernel (K4, csrc/probe_pipe.cu) == K1 ==
-                 the plain version at 4K and on phase 4's 10-bit cases;
-                 K4 and K1 timed in turns; the probe's run_config for the
-                 three configs (launches counted, bit-exact);
+ 16. pipe     -- the persistent pipeline probe kernel (K4,
+                 csrc/probe_pipe.cu: a bulk-copy ring feeding K1's per-line
+                 body) == K1 == the plain version at 4K and on phase 4's
+                 10-bit cases, at 1 and 2 thread blocks per SM; its plans
+                 and each instance's registers, shared memory, local memory
+                 (none allowed) and blocks per SM; K4 and K1 timed in turns;
+                 the probe's run_config for the three configs at 4K (K4 ==
+                 K1 == plain at every grid, launches counted, each plane's
+                 device time by torch.profiler);
  17. dot      -- every mode of the one-hot dot probe K6 (int8, bf16 and
                  f32 (TF32, its bank in two row groups) on the tensor cores
                  in csrc/probe_dotconst.cu, a persistent wgmma kernel that
@@ -132,7 +140,6 @@ from __future__ import annotations
 import hashlib
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -205,35 +212,6 @@ def int_mm_ms(a, pat):
     except RuntimeError:
         b = pat.t().contiguous()
     return cuda_ms(lambda: torch._int_mm(a, b), 5, warmup=1)
-
-
-def sass_ops(kernels, lib, function):
-    """The SASS opcodes of the kernel instance whose mangled name holds
-    ``function``, in the built library ``lib`` (cuobjdump); None without
-    cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return None
-    so = kernels._paths(lib)[1]
-    sass = subprocess.run([tool, "-sass", so], capture_output=True,
-                          text=True, check=True).stdout
-    body = next((f for f in sass.split("Function : ")[1:]
-                 if function in f.split("\n", 1)[0]), None)
-    check(body is not None, f"no SASS for {function} in {so}")
-    return re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
-                      body)
-
-
-def sass_counts(kernels, lib, function,
-                keys=("IMMA", "ISETP", "SEL", "SHF", "IADD3", "LDG", "LDS",
-                      "STS", "STG"), ops=None):
-    """Counts of the SASS instructions ``keys`` of that instance (``ops``,
-    or :func:`sass_ops` of it)."""
-    ops = ops or sass_ops(kernels, lib, function)
-    if ops is None:
-        return "cuobjdump not found"
-    return f"{len(ops)} instructions; " + ", ".join(
-        f"{k} {ops.count(k)}" for k in keys)
 
 
 def random_batch(pipe, frames, seed, dev):
@@ -439,11 +417,8 @@ def main() -> int:
                   **grain_natural.grain_plane_info(eb, lane))
               for eb in (2, 1) for lane in (False, True)))
     phase("kernel", "K1's uint16 lattice instance (this phase's): "
-          + sass_counts(_kernels, "grain_natural",
-                        "grain_plane_kernelItLb0ELi0EE",
-                        keys=("LDG", "LDS", "STG", "LDL", "STL", "SHFL",
-                              "IMAD", "IADD3", "LOP3", "SHF", "ISETP", "SEL",
-                              "PRMT", "BRA")))
+          + hz.sass_counts("grain_natural", hz.K1_MAIN,
+                           keys=hz.K1_SASS_KEYS))
     tbytes = tensor_bytes(*(tables[k] for k in ("pattern", "slut", "plut",
                                                 "scalars")))
     k1_bound = byte_bound_ms(nbytes + lat32.numel() * 4 + tbytes)
@@ -598,8 +573,8 @@ def main() -> int:
               "uint{} {}x{} {registers} / {static_smem} / {local_bytes} / "
               "{blocks_per_sm}".format(8 * eb, bh, bw, **info)
               for (eb, bh, bw), info in tinfo.items()))
-    phase("tiled 4K", "K3's uint16 16x16 instance (luma): " + sass_counts(
-        _kernels, "grain_tiled", "grain_tiled_kernelItLi16ELi16EE",
+    phase("tiled 4K", "K3's uint16 16x16 instance (luma): " + hz.sass_counts(
+        "grain_tiled", "grain_tiled_kernelItLi16ELi16EE",
         keys=("LDG", "LDS", "STS", "STG", "ATOMS", "BAR", "SHFL", "LDL",
               "STL", "IMAD", "ISETP", "SEL", "PRMT", "BRA")))
     tiled_ms, tiled_plain_ms = min(ms_tk, ms_tk2), min(ms_tp, ms_tp2)
@@ -671,18 +646,42 @@ def main() -> int:
     check(all(a.shape == b.shape for a, b in zip(lanes_k, lanes_p))
           and err_k2 == 0, f"4K K2 differs from its plain version (max "
           f"|err| {err_k2})")
-    ms_w = [cuda_ms(lambda: grain_natural.expand_words_cuda(wblks, bws), 50),
-            cuda_ms(lambda: grain_natural.expand_words_plain(wblks, bws), 20),
-            cuda_ms(lambda: grain_natural.expand_words_cuda(wblks, bws), 50),
-            cuda_ms(lambda: grain_natural.expand_words_plain(wblks, bws), 20)]
+    for sub in ([0], [1, 2]):   # one plane, and the two chroma planes
+        got = grain_natural.expand_words_cuda([wblks[k] for k in sub],
+                                              [bws[k] for k in sub])
+        torch.cuda.synchronize()
+        check(all(torch.equal(g, lanes_p[k]) for g, k in zip(got, sub)),
+              f"4K K2 on planes {sub} differs from its plain version")
+    k2_plan = grain_natural.expand_words_plan(
+        len(frame_ids) * (H // 16), [w.shape[2] for w in wblks], bws,
+        sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+
+    def run_k2():
+        return grain_natural.expand_words_cuda(wblks, bws)
+
+    def run_k2_plain():
+        return grain_natural.expand_words_plain(wblks, bws)
+
+    # chains of 200 launches an event pair, in turns; then each one's own
+    # device time (profiler): a chain of K2 times the host's launch pace
+    ms_w = [hz.calls_ms(fn, 200) for fn in (run_k2, run_k2_plain, run_k2,
+                                            run_k2_plain)]
+    k2_ms = hz.profile(run_k2, 200)["kernels_ms"]
+    k2_plain_dev = hz.profile(run_k2_plain, 50)["kernels_ms"]
     wbytes = sum(w.numel() * 4 for w in lanes_k + wblks)
-    k2_ms, k2_plain_ms = min(ms_w[0], ms_w[2]), min(ms_w[1], ms_w[3])
+    k2_plain_ms = min(ms_w[1], ms_w[3])
     phase("words 4K", f"{W}x{H} 4:2:0 batch {F}: K2 == plain expansion on "
-          f"Y, U, V lane words {[tuple(w.shape) for w in lanes_k]} (max "
-          f"|err| {err_k2}); per step (CUDA events; runs K2, plain, K2, "
-          f"plain): K2 {ms_w[0]:.4f} / {ms_w[2]:.4f} ms, plain "
-          f"{ms_w[1]:.4f} / {ms_w[3]:.4f} ms; {wbytes / 1e6:.1f} MB moved = "
-          f"{wbytes / (k2_ms * 1e-3) / 1e12:.3f} TB/s; card {card}")
+          f"Y, U, V lane words {[tuple(w.shape) for w in lanes_k]}, on Y "
+          f"alone and on U, V (max |err| {err_k2}); grid "
+          f"{k2_plan['grid']} of {k2_plan['threads']} threads, "
+          f"{k2_plan['rows_per_block']} rows a block, "
+          f"{k2_plan['waves']:.2f} waves; per launch (CUDA events, chains of "
+          f"200; runs K2, plain, K2, plain): K2 {ms_w[0]:.4f} / "
+          f"{ms_w[2]:.4f} ms, plain {ms_w[1]:.4f} / {ms_w[3]:.4f} ms; device "
+          f"time (profiler): K2 {k2_ms:.4f} ms, plain {k2_plain_dev:.4f} ms; "
+          f"{wbytes / 1e6:.1f} MB moved = {wbytes / (k2_ms * 1e-3) / 1e12:.3f}"
+          f" TB/s, {byte_bound_ms(wbytes) / k2_ms:.2f} of the bound; card "
+          f"{card}")
 
     # 12. the lane-word input of K1 at the main path's shape
     want = grain_natural.add_grain_batch_plain(*planes, bases, tables, **geo)
@@ -880,7 +879,7 @@ def main() -> int:
           f"launches; full " + ", ".join(
               f"{k} {b['full']:.4f} ms" for k, b in budgets.items()))
 
-    # 16. the prefetch probe kernel (K4)
+    # 16. the persistent pipeline probe kernel (K4), at every grid
     pipe_cases = [(f"default {W}x{H}", W, H, pipe, frame_ids)] + [
         (name, w, h, GrainPipeline(w, h, depth, fmt, device=dev, **kw),
          [0, 1, 3])
@@ -894,21 +893,49 @@ def main() -> int:
         pb, pbu = (list(b) for b in zip(*(ppipe.frame_bases(f)
                                           for f in fids)))
         pgeo = dict(bs=pregs.bs, csubx=pregs.csubx, csuby=pregs.csuby)
-        got = probe_ohpipe.make_pipe_step(ptables, height=h, width=w,
-                                          **pgeo)(*pplanes, pb, pbu)
         k1o = grain_natural.add_grain_batch_natural(
             *pplanes, pb, pbu, ptables, height=h, width=w, **pgeo)
         want = grain_natural.add_grain_batch_plain(*pplanes, pb, ptables,
                                                    **pgeo)
-        torch.cuda.synchronize()
-        err = max(max(int((a.int() - b.int()).abs().max()),
-                      int((a.int() - c.int()).abs().max()))
-                  for a, b, c in zip(got, k1o, want))
-        check(err == 0, f"pipe {name}: K4 differs from K1 or the plain "
-              f"version (max |err| {err})")
-        err_k4 = max(err_k4, err)
-        phase("pipe", f"{name}: K4 == K1 == plain on Y, U, V (max |err| 0)")
+        for bps in probe_ohpipe.GRIDS:
+            for ring in (True, False):
+                got = probe_ohpipe.make_pipe_step(
+                    ptables, height=h, width=w, blocks_per_sm=bps,
+                    ring=ring, **pgeo)(*pplanes, pb, pbu)
+                torch.cuda.synchronize()
+                err = max(max(int((a.int() - b.int()).abs().max()),
+                              int((a.int() - c.int()).abs().max()))
+                          for a, b, c in zip(got, k1o, want))
+                check(err == 0, f"pipe {name} at {bps} blocks per SM, ring "
+                      f"{ring}: K4 differs from K1 or the plain version "
+                      f"(max |err| {err})")
+                err_k4 = max(err_k4, err)
+        phase("pipe", f"{name}: K4 == K1 == plain on Y, U, V at "
+              f"{', '.join(map(str, probe_ohpipe.GRIDS))} blocks per SM, "
+              f"with the ring and without (max |err| 0)")
         del pplanes, got, k1o, want
+
+    pinfo = []
+    for bps in probe_ohpipe.GRIDS:
+        for c, ring in ((0, True), (1, True), (0, False)):
+            plan = probe_ohpipe.pipe_plan(
+                F, H // 16, W // 16, c=c, csubx=geo["csubx"],
+                csuby=geo["csuby"], blocks_per_sm=bps, ring=ring)
+            info = probe_ohpipe.pipe_info(plan)
+            check(info["local_bytes"] == 0 and info["blocks_per_sm"] >= bps,
+                  f"K4 at {bps} blocks per SM, plane {c}, ring {ring}: "
+                  f"{info}")
+            feed = (f"{plan['stages']} stages of {plan['lines']} lines"
+                    if ring else "no ring")
+            pinfo.append(f"{bps} {'UV' if c else 'Y'}: tile {plan['tile']} "
+                         f"x {plan['tiles']}, {feed}, grid "
+                         f"{plan['blocks']}; {{registers}} / {{static_smem}} "
+                         "/ {dynamic_smem} / {local_bytes} / "
+                         "{blocks_per_sm}".format(**info))
+    phase("pipe", "K4 plans and instances at N blocks per SM (plane): "
+          "registers / static / dynamic shared memory bytes / local memory "
+          "bytes per thread / thread blocks per SM (occupancy calculator): "
+          + "; ".join(pinfo))
 
     def run_k1():
         for c, p in enumerate(state0):
@@ -932,10 +959,14 @@ def main() -> int:
              for kind in ("default", "sei_ar", "afgs1")}
     k4_launches = pcounter.launches
     check(k4_launches > 0, "the pipe run never launched the K4 kernel")
-    check(all(exact for _, exact in pipes.values()),
-          "the pipe run found K4 and K1 diverging")
-    phase("pipe", f"probe run of 3 configs: {k4_launches} K4 launches, "
-          f"bit-exact; card {card}")
+    check(all(exact for *_, exact in pipes.values()),
+          "the pipe run found K4, K1 and the plain version diverging")
+    phase("pipe", f"probe run of 3 configs at {probe_ohpipe.GRIDS} blocks "
+          f"per SM: {k4_launches} K4 launches, K4 == K1 == plain; device ms "
+          f"per launch Y / U / V (profiler): " + "; ".join(
+              f"{kind} " + ", ".join(f"{n} " + " / ".join(
+                  f"{ms:.4f}" for ms in v) for n, v in planes.items())
+              for kind, (_, planes, _) in pipes.items()) + f"; card {card}")
     del state0, slat, swords
 
     # 17. the one-hot dot probe (K6) and its gather mode
@@ -1005,15 +1036,15 @@ def main() -> int:
         check(info["local_bytes"] == 0, f"the K6 {m} instance uses local "
               f"memory: {info}")
         inst = f"dotconst_kernelILi144ELi18ELi8ELi{_dot.WGMMA_SRC[m]}E"
-        ops = sass_ops(_kernels, "probe_dotconst", inst)
+        ops = hz.sass_ops("probe_dotconst", inst)
         if m == "f32" and ops is not None:
             check(ops.count("HGMMA") > 0 and ops.count("HMMA") == 0,
                   "the K6 f32 instance does not run on wgmma alone")
         phase("dot", "{} instance, registers / dynamic shared memory "
               "bytes / local memory bytes per thread / thread blocks per "
               "SM: {registers} / {smem} / {local_bytes} / "
-              "{blocks_per_sm}; ".format(m, **info) + sass_counts(
-                  _kernels, "probe_dotconst", inst,
+              "{blocks_per_sm}; ".format(m, **info) + hz.sass_counts(
+                  "probe_dotconst", inst,
                   keys=("IGMMA", "HGMMA", "HMMA", "IMMA", "LDL", "STL",
                         "SHFL", "LDG"), ops=ops))
     del y, t, pat, k6_want
@@ -1048,7 +1079,7 @@ def main() -> int:
           f"{lib7:.4f} ms on the same product: faster {ms7 < lib7}; "
           f"{k7['dotconst']['bound_ms'] / ms7:.3f} of its bound")
     phase("dot2", "build instance, what the compiler kept: "
-          + sass_counts(_kernels, "probe_dot", "dot_kernelILi5E"))
+          + hz.sass_counts("probe_dot", "dot_kernelILi5E"))
     phase("dot2", "dotconst instance (M=144, rows 18p + i), registers / "
           "dynamic shared memory bytes / local memory bytes per thread / "
           "thread blocks per SM: {registers} / {smem} / {local_bytes} / "
@@ -1106,8 +1137,8 @@ def main() -> int:
               "M={} {registers} / {smem} / {local_bytes} / "
               "{blocks_per_sm}".format(m, **_dot.dotconst_info(
                   m, _dot.scale_rows(m))) for m in pats))
-    phase("dotscale", "M=144 instance: " + sass_counts(
-        _kernels, "probe_dotconst", "dotconst_kernelILi144ELi16E",
+    phase("dotscale", "M=144 instance: " + hz.sass_counts(
+        "probe_dotconst", "dotconst_kernelILi144ELi16E",
         keys=("IGMMA", "IMMA", "LDS", "STS", "SHFL", "BAR", "LDL", "STL",
               "STG", "LDG")))
     del y, oh, pats
@@ -1166,8 +1197,8 @@ def main() -> int:
               for mode, rchunk in (("passthrough", 1), ("relayout", 1),
                                    ("relayout", 5), ("relayout", 15))))
     phase("relayout", "relayout instance at rchunk 1, the transpose through "
-          "shared memory: " + sass_counts(
-              _kernels, "probe_relayout", "relayout_kernelILi1E",
+          "shared memory: " + hz.sass_counts(
+              "probe_relayout", "relayout_kernelILi1E",
               keys=("LDG", "STS", "LDS", "STG", "BAR", "LOP3")))
     del y, y5, ys, ys5, xs
 

@@ -323,12 +323,17 @@ def test_tiled_step_never_tiles_on_the_card(cuda_device, monkeypatch):
         assert torch.equal(got[c], want[c]), f"plane {c}"
 
 
-def test_expand_words_matches_plain(cuda_device):
+@pytest.mark.parametrize("frames,rows,width", [(3, R, W), (1, 7, W),
+                                                (3, 5, 4800), (1, 1, 128)])
+def test_expand_words_matches_plain(frames, rows, width, cuda_device):
     """K2 (csrc/expand_words.cu) == its plain version, one launch for every
-    plane: 4:2:0 (bw 16, 8, 8) and a 4:4:4 pair (bw 16, 16)."""
-    rng = np.random.default_rng(5)
-    for bws in ((16, 8, 8), (16, 16)):
-        blk = [torch.from_numpy(rng.integers(0, 2048, (3, R, W // bw))
+    plane: 4:2:0 (bw 16, 8, 8), a 4:4:4 pair (bw 16, 16), luma alone and
+    the two chroma planes of 4:2:0, at odd row counts and at a width of 300
+    luma blocks (a row of two passes)."""
+    rng = np.random.default_rng(5 + frames * rows)
+    for bws in ((16, 8, 8), (16, 16), (16,), (8, 8)):
+        blk = [torch.from_numpy(rng.integers(0, 2048, (frames, rows,
+                                                       width // 16))
                                 .astype(np.int32)).to(cuda_device)
                for bw in bws]
         before = grain_natural.expand_words_cuda.launches
@@ -444,43 +449,85 @@ def test_budget_variants_match_plain(kind, cuda_device):
             assert torch.equal(got[c], want[c]), f"{kind} {name} plane {c}"
 
 
+# K4 (csrc/probe_pipe.cu) at K1's geometries: 16 block columns (256 wide),
+# and 17, 33, 49, where a row ends inside a warp's run of columns; 4:2:0,
+# 4:2:2 and 4:4:4 (chroma bh 8 or 16, bw 8 or 16).
+@pytest.mark.parametrize("cols", [16, 17, 33, 49])
+@pytest.mark.parametrize("csub", [(2, 2), (2, 1), (1, 1)])
+@pytest.mark.parametrize("kind", ["sei_ff", "sei_ar", "afgs1"])
+def test_pipe_matches_k1(kind, csub, cols, cuda_device):
+    """The persistent pipeline probe kernel (csrc/probe_pipe.cu) == K1 ==
+    the plain version, 10-bit, on grids of 1 and 2 blocks per SM, with its
+    ring and without (the ablation), and from a plane that is 4-byte but
+    not 16-byte aligned (copied first); every instance reports no local
+    memory and fits its blocks per SM."""
+    from versatilefilmgrain_tpu_torch.tools import probe_ohpipe
+    regs = regs_for(TORCH_PKG, kind, 10, csub)
+    tables = grain_natural.natural_tables(regs, cuda_device)
+    rows, frames = 3, (0, 2, 3)
+    bases, _ = frame_bases(TORCH_PKG, regs.seed_state, rows, cols, frames)
+    planes = [torch.from_numpy(p).to(cuda_device) for p in
+              random_planes(cols + 71, 10, rows, cols, csub,
+                            frames=len(frames))]
+    geo = dict(bs=2, csubx=csub[0], csuby=csub[1])
+    plain = grain_natural.add_grain_batch_plain(*planes, bases, tables, **geo)
+    words = grain_natural._as_int32_words(
+        grain_natural._lattice(bases, planes[0]))
+    counter = probe_ohpipe.grain_plane_pipe_cuda
+    for c, p in enumerate(planes):
+        want = grain_natural.grain_plane_cuda(p, words, tables, c=c, **geo)
+        for bps in probe_ohpipe.GRIDS:
+            for ring in (True, False):
+                before = counter.launches
+                got = counter(p, words, tables, c=c, blocks_per_sm=bps,
+                              ring=ring, **geo)
+                torch.cuda.synchronize()
+                assert counter.launches == before + 1
+                case = f"{kind} {csub} {bps} ring {ring} plane {c}"
+                assert torch.equal(got, want), case
+                assert torch.equal(got, plain[c]), case
+                plan = probe_ohpipe.pipe_plan(
+                    len(frames), rows, cols, c=c, csubx=csub[0],
+                    csuby=csub[1], blocks_per_sm=bps, ring=ring)
+                info = probe_ohpipe.pipe_info(plan)
+                assert info["local_bytes"] == 0, info
+                assert info["blocks_per_sm"] >= bps, info
+        buf = torch.empty(p.numel() + 2, dtype=torch.uint16,
+                          device=cuda_device)
+        shifted = buf[2:].view(p.shape)
+        shifted.copy_(p)
+        assert shifted.data_ptr() % 16 != 0
+        got = counter(shifted, words, tables, c=c, **geo)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), f"{kind} {csub} unaligned plane {c}"
+
+
 @pytest.mark.parametrize("kind", ["default", "sei_ar", "afgs1"])
-def test_pipe_matches_k1(kind, cuda_device):
-    """The prefetch probe kernel (csrc/probe_pipe.cu) == K1 == the plain
-    version, at 256x192 10-bit 4:2:0, on grids of 1 and 4 blocks per SM,
-    and from a plane that is 4-byte but not 16-byte aligned."""
+def test_pipe_step_pad_leak_matches_k1(kind, cuda_device):
+    """The probe's batched step at a pad-leak width (257 = 16 * 16 + 1,
+    17 block columns) and height (193) == K1's step == the plain version,
+    at every grid."""
     from versatilefilmgrain_tpu_torch.tools import _harness as hz
     from versatilefilmgrain_tpu_torch.tools import probe_ohpipe
+    height, width = 193, 257
+    rows, cols = -(-height // 16), -(-width // 16)
     regs = hz.config_regs(kind)
     tables = grain_natural.natural_tables(regs, cuda_device)
-    planes = hz.random_state(3, 71, H, W, device=cuda_device)
-    bases, bases_up = hz.frame_bases(regs, 3, R, C)
+    planes = hz.random_state(2, 73, rows * 16, cols * 16, device=cuda_device)
+    bases, bases_up = hz.frame_bases(regs, 2, rows, cols)
     want = grain_natural.add_grain_batch_natural(
-        *planes, bases, bases_up, tables, height=H, width=W, bs=2, csubx=2,
-        csuby=2)
+        *planes, bases, bases_up, tables, height=height, width=width, bs=2,
+        csubx=2, csuby=2)
     plain = grain_natural.add_grain_batch_plain(*planes, bases, tables,
                                                 bs=2, csubx=2, csuby=2)
-    counter = probe_ohpipe.grain_plane_pipe_cuda
-    for bps in (1, 4):
-        before = counter.launches
-        got = probe_ohpipe.make_pipe_step(tables, height=H, width=W,
+    for bps in probe_ohpipe.GRIDS:
+        got = probe_ohpipe.make_pipe_step(tables, height=height, width=width,
                                           blocks_per_sm=bps)(
             *planes, bases, bases_up)
         torch.cuda.synchronize()
-        assert counter.launches == before + 3
         for c in range(3):
             assert torch.equal(got[c], want[c]), f"{kind} {bps} plane {c}"
             assert torch.equal(got[c], plain[c]), f"{kind} {bps} plane {c}"
-    buf = torch.empty(planes[0].numel() + 2, dtype=torch.uint16,
-                      device=cuda_device)
-    y = buf[2:].view(planes[0].shape)
-    y.copy_(planes[0])
-    assert y.data_ptr() % 16 != 0 and y.data_ptr() % 4 == 0
-    words = grain_natural._as_int32_words(grain_natural._lattice(bases, y))
-    got = probe_ohpipe.grain_plane_pipe_cuda(y, words, tables, c=0, bs=2,
-                                             csubx=2, csuby=2)
-    torch.cuda.synchronize()
-    assert torch.equal(got, want[0])
 
 
 @pytest.mark.parametrize("width", [256, 160])

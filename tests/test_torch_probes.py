@@ -6,7 +6,8 @@ by path, with their module's ``pl`` replaced by a shim whose
 CPU unchanged.  On CPU tensors the port's probe steps run their plain
 versions: the per-stage budget's ablations (``budget_batch_plain``) must
 equal ``_fused_abl`` for every ablation the two kernels share, and the
-prefetch probe's step must equal ``_fused_pipe``.  Every comparison is
+persistent pipeline probe's step must equal ``_fused_pipe``.  Every
+comparison is
 exact, at 2 frames of 48x160 10-bit 4:2:0.
 """
 
@@ -157,7 +158,7 @@ def test_budget_fetch_standin():
 @pytest.mark.parametrize("variant", ["war", "dual"])
 @pytest.mark.parametrize("kind", KINDS)
 def test_pipe_step_matches_jax(kind, variant, jax_probes, monkeypatch):
-    """The prefetch probe's step on the CPU == the JAX ``_fused_pipe``
+    """The pipeline probe's step on the CPU == the JAX ``_fused_pipe``
     (interpret mode) for the probe's two default schedules."""
     m = jax_probes["probe_ohpipe"]
     monkeypatch.setattr(m, "VARIANT", variant, raising=False)
@@ -251,3 +252,108 @@ def test_budget_kernel_refuses_two_stages():
         probe_budget.grain_plane_budget_cuda(
             planes[0], _as_int32_words(lat), tables, c=0, csubx=2, csuby=2,
             bs=2, skip={"lut", "blend"})
+
+
+# K4's launch plan (probe_ohpipe.pipe_plan), pure Python: (frames, block
+# rows, block columns, component, (csubx, csuby)) at 4K and at the pad-leak
+# (17 block columns, 257 wide) and odd widths (33, 49, 300 block columns).
+PLAN_CASES = [(8, 135, 240, 0, (2, 2)), (8, 135, 240, 1, (2, 2)),
+              (8, 135, 240, 1, (2, 1)), (8, 135, 240, 1, (1, 1)),
+              (3, 12, 17, 0, (2, 2)), (3, 12, 17, 1, (2, 2)),
+              (2, 3, 33, 0, (2, 2)), (2, 3, 33, 1, (1, 1)),
+              (2, 3, 49, 1, (2, 1)), (1, 2, 300, 0, (2, 2)),
+              (1, 1, 1, 1, (2, 2))]
+
+
+@pytest.mark.parametrize("sms", [132, 7])
+@pytest.mark.parametrize("bps", probe_ohpipe.GRIDS)
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_pipe_plan_covers_every_line_once(case, bps, sms):
+    """Every (tile, strip, line) of the plane goes to exactly one thread
+    block, the blocks' work (columns x lines) is even to within one line,
+    the ring and tables fit the card's shared memory at ``bps`` blocks per
+    SM, and every bulk copy is 16-byte aligned with a size a multiple of
+    16, covering its tile and the halo that lies in the row."""
+    F, R, C, c, (csubx, csuby) = case
+    plan = probe_ohpipe.pipe_plan(F, R, C, c=c, csubx=csubx, csuby=csuby,
+                                  blocks_per_sm=bps, sms=sms)
+    bh, W, tile, nt = plan["bh"], plan["width"], plan["tile"], plan["tiles"]
+    assert plan["total_lines"] == nt * F * R * bh
+    assert 1 <= plan["blocks"] <= bps * sms
+    assert tile % 8 == 0 and tile <= probe_ohpipe.MAX_TILE
+    assert nt == -(-W // tile) and (nt == 1 or tile % 256 == 0)
+    assert plan["smem"] <= probe_ohpipe.SMEM_BLOCK
+    assert bps * (plan["smem"] + probe_ohpipe.SMEM_RESERVED) \
+        <= probe_ohpipe.SMEM_SM
+    assert 2 <= plan["stages"] <= probe_ohpipe.MAX_STAGES
+    assert plan["lines"] <= bh and bh % plan["lines"] == 0
+    assert plan["line_bytes"] % 16 == 0
+    bounds = [probe_ohpipe.block_lines(plan, b)
+              for b in range(plan["blocks"])]
+    assert bounds[0][0] == 0 and bounds[-1][1] == plan["total_lines"]
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    width = [min(tile, W - t * tile) for t in range(nt)]
+    work = [sum(width[l // (F * R * bh)] for l in range(a, b))
+            for a, b in bounds]
+    assert max(work) - min(work) <= 2 * tile
+    seen = set()
+    for line in range(plan["total_lines"]):
+        t, s, j, src, nbytes, dst = probe_ohpipe.line_copy(plan, line)
+        seen.add((t, s, j))
+        x_t = t * tile
+        xa, xb = max(x_t - probe_ohpipe.HALO, 0), min(
+            x_t + width[t] + probe_ohpipe.HALO, W)
+        assert (src * 2) % 16 == 0 and nbytes % 16 == 0 and dst % 16 == 0
+        assert src == (s * bh + j) * W + xa and nbytes == (xb - xa) * 2
+        assert dst + nbytes <= plan["line_bytes"]
+    assert len(seen) == plan["total_lines"]
+
+
+@pytest.mark.parametrize("bps", [0, 3, 4])
+def test_pipe_plan_refuses_grids_without_an_instance(bps):
+    with pytest.raises(ValueError, match="blocks_per_sm"):
+        probe_ohpipe.pipe_plan(8, 135, 240, c=0, csubx=2, csuby=2,
+                               blocks_per_sm=bps)
+
+
+@pytest.mark.parametrize("bps", probe_ohpipe.GRIDS)
+def test_pipe_plan_ring_options(bps):
+    """Lines per stage given: as many stages as fit; a count that is not a
+    power of two up to bh raises.  Without the ring the plan holds only
+    the mbarriers and tables, and its loop takes bh lines a group."""
+    for c, bh in ((0, 16), (1, 8)):
+        geo = dict(c=c, csubx=2, csuby=2, blocks_per_sm=bps)
+        for lines in (1, 2, 4, 8):
+            plan = probe_ohpipe.pipe_plan(8, 135, 240, lines=lines, **geo)
+            room = (probe_ohpipe.SMEM_SM // bps - probe_ohpipe.SMEM_RESERVED
+                    - probe_ohpipe.BAR_BYTES - probe_ohpipe.TABLE_BYTES)
+            assert plan["lines"] == lines and plan["stages"] == min(
+                probe_ohpipe.MAX_STAGES,
+                min(room, probe_ohpipe.SMEM_BLOCK) // plan["line_bytes"]
+                // lines)
+        for lines in (0, 3, 2 * bh):
+            with pytest.raises(ValueError, match="lines per stage"):
+                probe_ohpipe.pipe_plan(8, 135, 240, lines=lines, **geo)
+        plan = probe_ohpipe.pipe_plan(8, 135, 240, ring=False, **geo)
+        assert plan["smem"] == (probe_ohpipe.BAR_BYTES
+                                + probe_ohpipe.TABLE_BYTES)
+        assert plan["lines"] == bh and not plan["ring"]
+
+
+def test_pipe_wrapper_refusals():
+    """Without a launch: a grid without an instance, a wrong plane shape,
+    a plane that is not uint16 and words that are not int32 raise."""
+    tables, planes, _, _, lat = _inputs("default", 3)
+    words = _as_int32_words(lat)
+    wrapper = probe_ohpipe.grain_plane_pipe_cuda
+    launches = wrapper.launches
+    geo = dict(c=0, csubx=2, csuby=2, bs=2)
+    with pytest.raises(ValueError, match="blocks_per_sm"):
+        wrapper(planes[0], words, tables, blocks_per_sm=3, **geo)
+    with pytest.raises(ValueError, match="expected"):
+        wrapper(planes[0][:, :16], words, tables, **geo)
+    with pytest.raises(ValueError, match="expected"):
+        wrapper(planes[0].to(torch.int32), words, tables, **geo)
+    with pytest.raises(ValueError, match="expected"):
+        wrapper(planes[0], lat, tables, **geo)
+    assert wrapper.launches == launches

@@ -175,3 +175,73 @@ def test_expand_words_cuda_rejects_cpu_tensors():
     with pytest.raises(ValueError, match="1-3 planes"):
         grain_natural.expand_words_cuda([], [])
     assert grain_natural.expand_words_cuda.launches == 0
+
+
+def _expand_writes(plan, k, cols, bw):
+    """How often csrc/expand_words.cu's indexing, under ``plan``'s grid,
+    reads each block word and writes each 16-byte quad of plane ``k``: row
+    blocks take rows bx, bx + gx, ...; warp w words 32 w + 256 p of a row;
+    a lane its word, then quad q = 32 i + lane of the warp's words in round
+    i, which holds word q / (bw / 4)."""
+    rows, gx = plan["rows"], plan["grid"][0]
+    kq = bw // 4
+    reads = np.zeros((rows, cols), np.int64)
+    writes = np.zeros((rows, cols * kq), np.int64)
+    lane = np.arange(32)
+    for bx in range(gx):
+        for row in range(bx, rows, gx):
+            for b0 in range(0, cols, 32):       # each warp's pass
+                w = b0 + lane
+                np.add.at(reads[row], w[w < cols], 1)
+                for i in range(kq):
+                    q = 32 * i + lane
+                    ok = b0 + q // kq < cols
+                    np.add.at(writes[row], (b0 * kq + q)[ok], 1)
+    return reads, writes
+
+
+@pytest.mark.parametrize("rows,cols,bws,sms", [
+    (1080, [240, 240, 240], [16, 8, 8], 132),   # 4K 4:2:0, three planes
+    (1080, [240], [16], 132),                   # luma alone
+    (1080, [240, 240], [8, 8], 132),            # the two chroma planes
+    (15, [17, 9], [16, 8], 132),                # odd rows, pad-leak widths
+    (7, [33, 49, 300], [16, 16, 8], 132),       # a row of two passes
+    (1080, [240, 240, 240], [16, 16, 16], 4)])  # many rows a block
+def test_expand_words_plan_covers_every_quad_once(rows, cols, bws, sms):
+    """K2's launch plan (grain_natural.expand_words_plan): about one wave
+    of 256-thread blocks; under its grid every block word is read once and
+    every quad of lane words written once."""
+    plan = grain_natural.expand_words_plan(rows, cols, bws, sms=sms)
+    gx, planes = plan["grid"]
+    assert planes == len(cols) and 1 <= gx <= rows
+    assert plan["rows_per_block"] == -(-rows // gx)
+    # one wave, give or take a block a plane where rows do not divide
+    assert plan["rows_per_block"] == 1 or gx * planes <= (
+        sms * grain_natural.EXPAND_BLOCKS_PER_SM + planes)
+    assert plan["stores_per_word"] == [bw // 4 for bw in bws]
+    for k, (c, bw) in enumerate(zip(cols, bws)):
+        reads, writes = _expand_writes(plan, k, c, bw)
+        assert (reads == 1).all() and (writes == 1).all(), (k, c, bw)
+
+
+def test_expand_words_plan_refusals():
+    for args in (([], []), ([4, 4, 4, 4], [16] * 4), ([4], [12]),
+                 ([0], [16]), ([4, 4], [16])):
+        with pytest.raises(ValueError):
+            grain_natural.expand_words_plan(3, *args)
+    with pytest.raises(ValueError):
+        grain_natural.expand_words_plan(0, [4], [16])
+
+
+def test_expand_words_cuda_rejects_bad_shapes():
+    """Shapes are checked before the device: a plane of another frame or
+    row count, a block width other than 8 or 16, words of another type."""
+    blk = torch.zeros((2, 3, 4), dtype=torch.int32)
+    for wblks, bws in (([blk, torch.zeros((2, 4, 4), dtype=torch.int32)],
+                        [16, 8]),
+                       ([blk], [12]),
+                       ([blk.to(torch.int64)], [16]),
+                       ([blk[0]], [16])):
+        with pytest.raises(ValueError, match="expected|bw"):
+            grain_natural.expand_words_cuda(wblks, bws)
+    assert grain_natural.expand_words_cuda.launches == 0

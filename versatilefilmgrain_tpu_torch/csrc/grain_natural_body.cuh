@@ -1,9 +1,10 @@
 // The device code of the natural-layout grain kernel (K1), shared by
 // grain_natural.cu (K1 itself) and the two probes that fork it:
 // probe_budget.cu (per-stage budget, K5, which instantiates K1's kernel
-// with a stage mask) and probe_pipe.cu (prefetch pipeline, K4, which runs
-// the per-pixel body grain_pixel in its own schedule).  A probe that
-// includes this header cannot drift from the shipped kernel.
+// with a stage mask) and probe_pipe.cu (persistent pipeline, K4, which runs
+// K1's per-line body grain_line in its own schedule, on pixels that bulk
+// copies bring into shared memory).  A probe that includes this header
+// cannot drift from the shipped kernel.
 //
 // Per pixel (f, y, x) of plane c, block row r = y / bh, block column
 // b = x / bw (reference: vfgs_hw.c:140-312, JAX ops/grain_jnp.py):
@@ -38,8 +39,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace vfg {
 
@@ -84,19 +83,6 @@ inline bool make_plane(int c, int csubx, int csuby, int bs, Plane& g) {
   return true;
 }
 
-// Where a block row's words are read from: device memory through the
-// read-only path, or shared memory (a probe that stages them).
-struct GlobalWords {
-  static __device__ __forceinline__ uint32_t ld(const uint32_t* p) {
-    return __ldg(p);
-  }
-};
-struct SharedWords {
-  static __device__ __forceinline__ uint32_t ld(const uint32_t* p) {
-    return *p;
-  }
-};
-
 // A table read: shared memory, or device memory under kNoStage.
 template <int kSkip, typename U>
 __device__ __forceinline__ U tab(const U* t, int i) {
@@ -128,22 +114,32 @@ __device__ __forceinline__ void block_offsets(uint32_t val, const Plane& g,
 }
 
 // Sign s, pattern column col = ox + x % bw and pattern row oy of column x,
-// from one block row's words (lattice or lane words).
-template <bool kLane, class Ld>
-__device__ __forceinline__ void offsets_at(const uint32_t* __restrict__ words,
-                                           int x, const Plane& g, int& s,
-                                           int& col, int& oy) {
+// from the word `w` that holds them: its block's lattice word, or its own
+// lane word.
+template <bool kLane>
+__device__ __forceinline__ void word_offsets(uint32_t w, int x,
+                                             const Plane& g, int& s,
+                                             int& col, int& oy) {
   if constexpr (kLane) {
-    const uint32_t w = Ld::ld(words + x);
     const int t = int(w & 0x3FFu);
     s = 1 - 2 * int((w >> 10) & 1u);
     col = t & (16 * g.xmul - 1);
     oy = (t >> g.lkc) * g.ymul;
   } else {
     int ox;
-    block_offsets(Ld::ld(words + (x >> g.lbw)), g, s, ox, oy);
+    block_offsets(w, g, s, ox, oy);
     col = ox + (x & (g.bw - 1));
   }
+}
+
+// The same from one block row's words (lattice or lane words), read from
+// device memory through the read-only path.
+template <bool kLane>
+__device__ __forceinline__ void offsets_at(const uint32_t* __restrict__ words,
+                                           int x, const Plane& g, int& s,
+                                           int& col, int& oy) {
+  word_offsets<kLane>(__ldg(words + (kLane ? x : x >> g.lbw)), x, g, s, col,
+                      oy);
 }
 
 // Pattern index pi of a pixel of intensity `inten`.
@@ -166,75 +162,6 @@ __device__ __forceinline__ int fetch_at(const int8_t* pat, int pi, int idx) {
     return (((idx + pi) & 0xFF) ^ 0x80) - 0x80;
   else
     return int(tab<kSkip>(pat, pi * (64 * 64) + idx));
-}
-
-// Blended, pre-deblock grain sample of column x on line j of the block row.
-// `up` is the upper block row's words, or null where the row does not blend
-// (a frame's first block row, a shard's first without blend0).
-template <int kSkip, bool kLane, class Ld, typename T>
-__device__ __forceinline__ int grain_sample(const T* __restrict__ row,
-                                            const uint32_t* __restrict__ words,
-                                            const uint32_t* __restrict__ up,
-                                            const int8_t* pat,
-                                            const uint8_t* plut, int x, int j,
-                                            const Plane& g) {
-  const int pi = pattern_of<kSkip>((int(row[x]) >> g.bs) & 0xFF, plut, g);
-  int s, col, oy;
-  offsets_at<kLane, Ld>(words, x, g, s, col, oy);
-  int P = s * fetch_at<kSkip>(pat, pi, (oy + j) * 64 + col);
-  if ((kSkip & kNoBlend) == 0 && up != nullptr && j < g.n_ov) {
-    int su, colu, oyu;
-    offsets_at<kLane, Ld>(up, x, g, su, colu, oyu);
-    const int Pu =
-        su * fetch_at<kSkip>(pat, pi, (oyu + g.bh + j) * 64 + colu);
-    const int oc1 = g.n_ov == 1 ? 20 : (j == 0 ? 12 : 24);
-    const int oc2 = g.n_ov == 1 ? 20 : (j == 0 ? 24 : 12);
-    P = (P * oc1 + Pu * oc2 + 16) >> 5;
-  }
-  return P;
-}
-
-// Output sample of column x on line j of a block row: grain sample,
-// deblock, scale, add, clip.  `row` is the line's input samples, indexed by
-// plane column; `Wp` the plane width; `bias`/`ss` the rounding bias and
-// scale shift; `imin`/`imax` the clip range shifted by bs.  This is the
-// per-pixel body of the prefetch probe (K4, probe_pipe.cu), which samples
-// an edge pixel's neighbours again; K1's kernel below shares them.
-template <int kSkip, bool kLane, class Ld, typename T>
-__device__ __forceinline__ T grain_pixel(const T* __restrict__ row,
-                                         const uint32_t* __restrict__ words,
-                                         const uint32_t* __restrict__ up,
-                                         const int8_t* pat,
-                                         const uint8_t* slut,
-                                         const uint8_t* plut, int x, int j,
-                                         int Wp, int bias, int ss, int imin,
-                                         int imax, const Plane& g) {
-  const int pix = int(row[x]);
-  int P = grain_sample<kSkip, kLane, Ld>(row, words, up, pat, plut, x, j, g);
-  if constexpr ((kSkip & kNoDeblock) == 0) {
-    const int i = x & (g.bw - 1);
-    if ((i == 0 && x > 0) || (i == g.bw - 1 && x < Wp - 1)) {
-      const int Pl =
-          grain_sample<kSkip, kLane, Ld>(row, words, up, pat, plut, x - 1, j,
-                                         g);
-      const int Pr =
-          grain_sample<kSkip, kLane, Ld>(row, words, up, pat, plut, x + 1, j,
-                                         g);
-      P = (Pl + 3 * P + Pr + 2) >> 2;
-    }
-  }
-  if constexpr ((kSkip & kNoEpilogue) != 0) {
-    return T(pix + P);
-  } else {
-    const int inten = (pix >> g.bs) & 0xFF;
-    int sc;
-    if constexpr ((kSkip & kNoLut) != 0)
-      sc = inten;
-    else
-      sc = tab<kSkip>(slut, inten);
-    const int v = pix + ((sc * P + bias) >> ss);
-    return T(min(max(v, imin), imax));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -281,8 +208,24 @@ struct Offsets {
 #pragma unroll
     for (int k = 0; k < kN; ++k) {
       int col, oy;
-      offsets_at<kLane, GlobalWords>(words, x + k, g, s[k], col, oy);
+      offsets_at<kLane>(words, x + k, g, s[k], col, oy);
       idx[k] = (oy + drow) * 64 + col;
+    }
+  }
+  // kN = 1: from the word `w` that holds column x's offsets, already read.
+  __device__ __forceinline__ void from_word(uint32_t w, int x, int drow,
+                                            const Plane& g) {
+    static_assert(kN == 1, "one word decodes one column (or lattice run)");
+    int col, oy;
+    word_offsets<kLane>(w, x, g, s[0], col, oy);
+    idx[0] = (oy + drow) * 64 + col;
+  }
+  // The same columns' offsets `drow` rows further down the pattern.
+  __device__ __forceinline__ void shift_rows(const Offsets& o, int drow) {
+#pragma unroll
+    for (int k = 0; k < kN; ++k) {
+      s[k] = o.s[k];
+      idx[k] = o.idx[k] + drow * 64;
     }
   }
   __device__ __forceinline__ int sign(int k) const {
@@ -319,6 +262,10 @@ struct RunBits<uint16_t> {
   __device__ __forceinline__ void load(const uint16_t* __restrict__ p) {
     w = __ldg(reinterpret_cast<const uint4*>(p));
   }
+  // from shared memory (a bulk copy's destination), 16-byte aligned
+  __device__ __forceinline__ void load_shared(const uint16_t* p) {
+    w = *reinterpret_cast<const uint4*>(p);
+  }
   __device__ __forceinline__ int operator[](int k) const {
     const uint32_t u = k < 2 ? w.x : k < 4 ? w.y : k < 6 ? w.z : w.w;
     return int((u >> (16 * (k & 1))) & 0xFFFFu);
@@ -353,6 +300,68 @@ __device__ __forceinline__ void store_run(T* p, const int (&v)[kRun]) {
       u[k >> 2] |= (uint32_t(v[k]) & 0xFFu) << (8 * (k & 3));
     *reinterpret_cast<uint2*>(p) = make_uint2(u[0], u[1]);
   }
+}
+
+// Line j of a block row for the run of kRun columns at x0 that this lane
+// holds (K1's per-line body; K4 runs it too): `bits` are the run's pixels
+// on the line and, at an end lane, `pe` the extra column's; own / upper
+// (kBlend) / ext / ext_up the offsets decoded once per block row; `dst` the
+// block row's first output line, Wp samples a line.  The blended samples
+// of the run's columns, the deblock at block edges (`left`, `right`) with
+// the neighbour runs' samples by shuffles and the end lanes' extra sample,
+// then scale, round, add and clip; stores the run where it is `live`.
+template <int kSkip, bool kBlend, typename T, class Own, class Ext>
+__device__ __forceinline__ void grain_line(
+    T* dst, int Wp, int x0, int j, const RunBits<T>& bits, int pe,
+    const Own& own, const Own& upper, const Ext& ext, const Ext& ext_up,
+    const int8_t* pat, const uint8_t* pl, const uint8_t* sl, const Plane& g,
+    int bias, int ss, int imin, int imax, int lane, bool end_lane, bool left,
+    bool right, bool live) {
+  constexpr bool kDeblock = (kSkip & kNoDeblock) == 0;
+  const int w1 = g.n_ov == 1 ? 20 : (j == 0 ? 12 : 24);
+  const int w2 = g.n_ov == 1 ? 20 : (j == 0 ? 24 : 12);
+  const int j64 = j * 64;
+  int pix[kRun], inten[kRun], P[kRun];
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    pix[k] = bits[k];
+    inten[k] = (pix[k] >> g.bs) & 0xFF;
+    P[k] = sample_at<kSkip, kBlend>(
+        pat, pattern_of<kSkip>(inten[k], pl, g), own.sign(k), own.at(k),
+        upper.sign(k), upper.at(k), j64, w1, w2);
+  }
+  if constexpr (kDeblock) {
+    int Pe = 0;
+    if (end_lane) {
+      const int ie = (pe >> g.bs) & 0xFF;
+      Pe = sample_at<kSkip, kBlend>(pat, pattern_of<kSkip>(ie, pl, g),
+                                    ext.sign(0), ext.at(0), ext_up.sign(0),
+                                    ext_up.at(0), j64, w1, w2);
+    }
+    const int from_left = __shfl_up_sync(0xFFFFFFFFu, P[kRun - 1], 1);
+    const int from_right = __shfl_down_sync(0xFFFFFFFFu, P[0], 1);
+    const int Pl = lane == 0 ? Pe : from_left;
+    const int Pr = lane == 31 ? Pe : from_right;
+    const int first = (Pl + 3 * P[0] + P[1] + 2) >> 2;
+    const int last = (P[kRun - 2] + 3 * P[kRun - 1] + Pr + 2) >> 2;
+    if (left) P[0] = first;
+    if (right) P[kRun - 1] = last;
+  }
+  int o[kRun];
+#pragma unroll
+  for (int k = 0; k < kRun; ++k) {
+    if constexpr ((kSkip & kNoEpilogue) != 0) {
+      o[k] = pix[k] + P[k];
+    } else {
+      int sc;
+      if constexpr ((kSkip & kNoLut) != 0)
+        sc = inten[k];
+      else
+        sc = tab<kSkip>(sl, inten[k]);
+      o[k] = min(max(pix[k] + ((sc * P[k] + bias) >> ss), imin), imax);
+    }
+  }
+  if (live) store_run<T>(dst + size_t(j) * Wp + x0, o);
 }
 
 // The lattice instance is held to 64 registers, 4 thread blocks per SM; the
@@ -446,57 +455,6 @@ grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
       if (kDeblock && end_lane) ext_up.decode(up, xe, g.bh, g);
     }
 
-    // Line j from its pixels `bits` and, at an end lane, the extra
-    // column's pixel pe.
-    auto line = [&](auto blended, int j, const RunBits<T>& bits,
-                    int pe) {
-      constexpr bool kBlend = decltype(blended)::value;
-      const int w1 = g.n_ov == 1 ? 20 : (j == 0 ? 12 : 24);
-      const int w2 = g.n_ov == 1 ? 20 : (j == 0 ? 24 : 12);
-      const int j64 = j * 64;
-      int pix[kRun], inten[kRun], P[kRun];
-#pragma unroll
-      for (int k = 0; k < kRun; ++k) {
-        pix[k] = bits[k];
-        inten[k] = (pix[k] >> g.bs) & 0xFF;
-        P[k] = sample_at<kSkip, kBlend>(
-            pat, pattern_of<kSkip>(inten[k], pl, g), own.sign(k), own.at(k),
-            upper.sign(k), upper.at(k), j64, w1, w2);
-      }
-      if constexpr (kDeblock) {
-        int Pe = 0;
-        if (end_lane) {
-          const int ie = (pe >> g.bs) & 0xFF;
-          Pe = sample_at<kSkip, kBlend>(pat, pattern_of<kSkip>(ie, pl, g),
-                                        ext.sign(0), ext.at(0),
-                                        ext_up.sign(0), ext_up.at(0), j64,
-                                        w1, w2);
-        }
-        const int from_left = __shfl_up_sync(0xFFFFFFFFu, P[kRun - 1], 1);
-        const int from_right = __shfl_down_sync(0xFFFFFFFFu, P[0], 1);
-        const int Pl = lane == 0 ? Pe : from_left;
-        const int Pr = lane == 31 ? Pe : from_right;
-        const int first = (Pl + 3 * P[0] + P[1] + 2) >> 2;
-        const int last = (P[kRun - 2] + 3 * P[kRun - 1] + Pr + 2) >> 2;
-        if (left) P[0] = first;
-        if (right) P[kRun - 1] = last;
-      }
-      int o[kRun];
-#pragma unroll
-      for (int k = 0; k < kRun; ++k) {
-        if constexpr ((kSkip & kNoEpilogue) != 0) {
-          o[k] = pix[k] + P[k];
-        } else {
-          int sc;
-          if constexpr ((kSkip & kNoLut) != 0)
-            sc = inten[k];
-          else
-            sc = tab<kSkip>(sl, inten[k]);
-          o[k] = min(max(pix[k] + ((sc * P[k] + bias) >> ss), imin), imax);
-        }
-      }
-      if (live) store_run<T>(dst + size_t(j) * Wp + x0, o);
-    };
     // Each line's pixels are loaded kAhead lines ahead, in flight while
     // the lines before are computed (ring[0] is line j's).
     RunBits<T> ring[kAhead + 1];
@@ -513,9 +471,13 @@ grain_plane_kernel(const T* __restrict__ in, T* __restrict__ out,
         if (kDeblock && end_lane) pe[kAhead] = int(__ldg(row + xe));
       }
       if (j < n_bl)
-        line(std::true_type(), j, ring[0], pe[0]);
+        grain_line<kSkip, true>(dst, Wp, x0, j, ring[0], pe[0], own, upper,
+                                ext, ext_up, pat, pl, sl, g, bias, ss, imin,
+                                imax, lane, end_lane, left, right, live);
       else
-        line(std::false_type(), j, ring[0], pe[0]);
+        grain_line<kSkip, false>(dst, Wp, x0, j, ring[0], pe[0], own, upper,
+                                 ext, ext_up, pat, pl, sl, g, bias, ss, imin,
+                                 imax, lane, end_lane, left, right, live);
 #pragma unroll
       for (int a = 0; a < kAhead; ++a) {
         ring[a] = ring[a + 1];
@@ -546,12 +508,13 @@ int launch_grain_plane(const T* in, T* out, const uint32_t* words,
 
 // Registers per thread, static shared memory bytes per thread block, local
 // memory bytes per thread (stack and spills) and thread blocks per SM (the
-// occupancy calculator, at `threads` threads and no dynamic shared memory)
-// of the kernel `fn`.  Returns the first CUDA error, or cudaSuccess.  The
-// info entry points of K1 and K3 (grain_natural.cu, grain_tiled.cu).
+// occupancy calculator, at `threads` threads and `dyn_smem` bytes of
+// dynamic shared memory) of the kernel `fn`.  Returns the first CUDA
+// error, or cudaSuccess.  The info entry points of K1, K3 and K4
+// (grain_natural.cu, grain_tiled.cu, probe_pipe.cu).
 template <typename Fn>
 int kernel_info(Fn fn, int threads, int* regs, int* smem, int* local,
-                int* blocks) {
+                int* blocks, int dyn_smem = 0) {
   cudaFuncAttributes a;
   cudaError_t e = cudaFuncGetAttributes(&a, fn);
   if (e != cudaSuccess) return int(e);
@@ -559,7 +522,8 @@ int kernel_info(Fn fn, int threads, int* regs, int* smem, int* local,
   *smem = int(a.sharedSizeBytes);
   *local = int(a.localSizeBytes);
   return int(cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, fn,
-                                                           threads, 0));
+                                                           threads,
+                                                           dyn_smem));
 }
 
 }  // namespace vfg

@@ -148,7 +148,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     elif name == "expand_words":
         lib.vfg_expand_words.restype = i
         lib.vfg_expand_words.argtypes = [
-            i, i,                   # planes, rows
+            i, i, i,                # planes, rows, row blocks (grid.x)
             vp, vp, i, i,           # in0, out0, cols0, bw0
             vp, vp, i, i,           # in1, out1, cols1, bw1
             vp, vp, i, i,           # in2, out2, cols2, bw2
@@ -169,8 +169,14 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             vp, vp, vp, vp,         # pattern, slut, plut, scalars
             i, i, i,                # frames, rows, cols
             i, i, i, i, i,          # c, csubx, csuby, bs, zero_scale
-            i,                      # blocks_per_sm
+            i, i, i,                # blocks_per_sm, blocks, ring
+            i, i, i,                # tile, lines, stages
             vp]                     # stream
+        lib.vfg_probe_pipe_info.restype = i
+        lib.vfg_probe_pipe_info.argtypes = [
+            i, i, i,                # blocks_per_sm, ring, dynamic smem
+            ctypes.POINTER(i), ctypes.POINTER(i),  # registers, static smem
+            ctypes.POINTER(i), ctypes.POINTER(i)]  # local bytes, blocks/SM
     elif name == "probe_dot":
         lib.vfg_probe_dot.restype = i
         lib.vfg_probe_dot.argtypes = [

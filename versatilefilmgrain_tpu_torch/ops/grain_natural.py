@@ -189,32 +189,68 @@ def lane_word_offsets(words, c: int, csubx: int, csuby: int):
             (t >> (KC.bit_length() - 1)) * ymul)
 
 
+EXPAND_THREADS = 256        # csrc/expand_words.cu: threads a block
+EXPAND_BLOCKS_PER_SM = 8   # of them resident on an SM (2,048 threads)
+
+
+def expand_words_plan(rows: int, cols, bws, *, sms: int = 132) -> dict:
+    """The launch plan of csrc/expand_words.cu for ``rows`` (frames x block
+    rows) of each plane's ``cols[k]`` block words of width ``bws[k]``, on
+    a card of ``sms`` SMs: grid (row_blocks, planes) of 256 threads, about
+    one wave, each block taking ``rows_per_block`` rows (the last block of
+    a plane fewer), a warp 32 block words of a row in ``passes`` passes
+    and writing ``stores_per_word`` 16-byte quads for each word."""
+    if not 1 <= len(cols) <= 3 or len(bws) != len(cols):
+        raise ValueError(f"expand_words takes 1-3 planes, got {len(cols)} "
+                         f"with {len(bws)} block widths")
+    if rows < 1 or sms < 1 or min(cols) < 1 or any(b not in (8, 16)
+                                                   for b in bws):
+        raise ValueError(f"expected rows, block words and SMs >= 1 and bw "
+                         f"8 or 16, got {rows} rows, {list(cols)} words, bws "
+                         f"{list(bws)}, {sms} SMs")
+    wave = sms * EXPAND_BLOCKS_PER_SM
+    per = -(-rows * len(cols) // wave)       # rows a block, about one wave
+    row_blocks = -(-rows // per)
+    return dict(rows=rows, threads=EXPAND_THREADS,
+                grid=(row_blocks, len(cols)),
+                rows_per_block=-(-rows // row_blocks),
+                passes=[-(-c // EXPAND_THREADS) for c in cols],
+                stores_per_word=[b // 4 for b in bws],
+                waves=row_blocks * len(cols) / wave)
+
+
 def expand_words_cuda(wblks, bws):
     """Launch csrc/expand_words.cu once for every plane of ``wblks`` (one
     to three (F, R, C_p) int32 block-word tensors on one CUDA device, block
-    widths ``bws``); returns the (F, R, 1, C_p*bw_p) int32 lane words.
-    Adds one to ``expand_words_cuda.launches`` per launch."""
+    widths ``bws``) with :func:`expand_words_plan`'s grid; returns the (F,
+    R, 1, C_p*bw_p) int32 lane words.  Adds one to
+    ``expand_words_cuda.launches`` per launch."""
     if not 1 <= len(wblks) <= 3 or len(bws) != len(wblks):
         raise ValueError(f"expand_words_cuda takes 1-3 planes, got "
                          f"{len(wblks)} with {len(bws)} block widths")
     dev = wblks[0].device
-    if dev.type != "cuda":
-        raise ValueError(f"expand_words_cuda needs CUDA tensors, got {dev}")
     F, R = wblks[0].shape[:2]
-    args, outs = [], []
     for k, (w, bw) in enumerate(zip(wblks, bws)):
         if w.dim() != 3 or bw not in (8, 16):
             raise ValueError(f"plane {k}: expected (F, R, C) block words and "
                              f"bw 8 or 16, got {tuple(w.shape)}, bw {bw}")
+        _check_plane(f"block words {k}", w, (F, R, w.shape[2]), torch.int32,
+                     dev)
+    if dev.type != "cuda":
+        raise ValueError(f"expand_words_cuda needs CUDA tensors, got {dev}")
+    plan = expand_words_plan(
+        F * R, [w.shape[2] for w in wblks], bws,
+        sms=torch.cuda.get_device_properties(dev).multi_processor_count)
+    args, outs = [], []
+    for w, bw in zip(wblks, bws):
         C = w.shape[2]
-        _check_plane(f"block words {k}", w, (F, R, C), torch.int32, dev)
         out = torch.empty((F, R, 1, C * bw), dtype=torch.int32, device=dev)
         outs.append(out)
         args += [w.data_ptr(), out.data_ptr(), C, bw]
     args += [None, None, 0, 0] * (3 - len(wblks))
     lib = _kernels.load("expand_words")
     rc = lib.vfg_expand_words(
-        len(wblks), F * R, *args,
+        len(wblks), F * R, plan["grid"][0], *args,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"expand_words kernel launch failed: CUDA error "

@@ -1,6 +1,7 @@
 """Shared helpers of the probes: the headline shape, the register files of
 the three probe configs, frame bases, seeded planes, chained and profiled
-timing on the card and the timed, checked run of a probe's cases.
+timing on the card, SASS instruction counts of a built kernel and the
+timed, checked run of a probe's cases.
 
 The counterpart of what the JAX probes import from ``bench.py`` and
 ``__graft_entry__.py``, on the port's own modules.
@@ -9,6 +10,8 @@ The counterpart of what the JAX probes import from ``bench.py`` and
 from __future__ import annotations
 
 import os
+import re
+import shutil
 import subprocess
 import sys
 
@@ -25,6 +28,10 @@ from ..utils import parsers, yuv
 H, W = 2160, 3840      # the headline shape: 4K 10-bit 4:2:0
 FRAMES_BATCH = 8       # frames per batch step
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet: device memory bytes/s
+# SASS instructions counted for K1's main instance (uint16, lattice words)
+K1_SASS_KEYS = ("LDG", "LDS", "STG", "LDL", "STL", "SHFL", "IMAD", "IADD3",
+                "LOP3", "SHF", "ISETP", "SEL", "PRMT", "BRA")
+K1_MAIN = "grain_plane_kernelItLb0ELi0EE"   # its mangled name holds this
 
 CFG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "tests", "golden", "cfg")
@@ -145,6 +152,56 @@ def profile(step, n: int) -> dict:
                                                       key=lambda kv: -kv[1])},
         kernels_per_step=launches / n, copies_per_step=copies / n,
         kernels_ms=sum(kernels.values()) / n / 1e3)
+
+
+def calls_ms(fn, n: int = 200) -> float:
+    """Device ms per call of ``fn()`` over a chain of ``n`` calls between
+    two CUDA events: one warm-up chain, then the median of three.  A chain
+    of a kernel shorter than its launch overhead times the host's pace, not
+    the kernel's: :func:`profile` gives the kernel's own device time."""
+    def chain():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n
+
+    chain()
+    return sorted(chain() for _ in range(3))[1]
+
+
+def sass_ops(lib: str, function: str):
+    """The SASS opcodes of the kernel instance whose mangled name holds
+    ``function`` in the built library of csrc/<lib>.cu (cuobjdump); None
+    without cuobjdump."""
+    from ..ops import _kernels
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    so = _kernels._paths(lib)[1]
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    body = next((f for f in sass.split("Function : ")[1:]
+                 if function in f.split("\n", 1)[0]), None)
+    if body is None:
+        raise RuntimeError(f"no SASS for {function} in {so}")
+    return re.findall(r"/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                      body)
+
+
+def sass_counts(lib: str, function: str,
+                keys=("IMMA", "ISETP", "SEL", "SHF", "IADD3", "LDG", "LDS",
+                      "STS", "STG"), ops=None) -> str:
+    """Counts of the SASS instructions ``keys`` of that instance (``ops``,
+    or :func:`sass_ops` of it), as one line."""
+    ops = ops or sass_ops(lib, function)
+    if ops is None:
+        return "cuobjdump not found"
+    return f"{len(ops)} instructions; " + ", ".join(
+        f"{k} {ops.count(k)}" for k in keys)
 
 
 def card() -> str:
