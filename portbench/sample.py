@@ -1,0 +1,36 @@
+"""Which outputs of the window are kept for the check, drawn from the seed.
+
+At each position of a batch (frame index modulo the batch) ``per_position``
+frames are kept by reservoir sampling, so every frame at that position has
+the same chance whatever the window's length, and a fault at any position
+of a batch is met.  The driver keeps the last frame as well.  Numpy only:
+the pipe's sink process uses it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+class Sampler:
+    def __init__(self, seed: int, positions: int, per_position: int):
+        self.rng = np.random.default_rng([seed % (1 << 64), 0x5A3])
+        self.per = per_position
+        self.seen = [0] * positions
+        self.kept: dict[int, int] = {}     # slot -> frame index
+
+    @property
+    def slots(self) -> int:
+        return len(self.seen) * self.per
+
+    def offer(self, n: int, position: int) -> int | None:
+        """The slot frame ``n`` (at ``position``) is to be kept in, or
+        None.  The caller copies the frame into that slot."""
+        self.seen[position] += 1
+        j = self.seen[position]
+        r = j - 1 if j <= self.per else int(self.rng.integers(0, j))
+        if r >= self.per:
+            return None
+        slot = position * self.per + r
+        self.kept[slot] = n
+        return slot
