@@ -834,3 +834,30 @@ def test_designer_app_on_card(cuda_device, tmp_path):
             assert np.array_equal(a, b), c
     finally:
         plt.close(app.fig)
+
+
+def test_traced_run_file_spans_stay_off_the_device_timeline(cuda_device,
+                                                             tmp_path):
+    """A profiled ``run_file`` on the card: the program's spans (utils/
+    tracing.py) are no profiler ranges, so no CUDA event bears a span's
+    name; the step's prep and kernel spans are recorded, and the output
+    equals a --device cpu run's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from versatilefilmgrain_tpu_torch import GrainPipeline
+    from versatilefilmgrain_tpu_torch.utils import tracing
+    inp = _designer_input(tmp_path, W, H, 6)
+    out, want = str(tmp_path / "out.yuv"), str(tmp_path / "cpu.yuv")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        n = GrainPipeline(W, H, 10, 0).run_file(inp, out, batch=4)
+    got = tracing.record()
+    names = set(tracing.summary(got["spans"]))
+    assert n == 6 == got["counters"]["frames"]
+    assert {"run_file", "grain.prep", "grain.kernels", "upload", "download",
+            "wait"} <= names
+    on_device = {e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA}
+    assert on_device and not names & on_device
+    GrainPipeline(W, H, 10, 0, device="cpu").run_file(inp, want, batch=4)
+    assert open(out, "rb").read() == open(want, "rb").read()

@@ -56,8 +56,10 @@ def help_text(name: str) -> str:
         "                                   (plain torch engines) [cuda]\n"
         "   --grain-offset <value>          Global grain-state frame offset (use with -s\n"
         "                                   for bit-exact frame sharding) [0]\n"
-        "   --profile      <dir>            Write a torch.profiler trace to <dir>/trace.json\n"
-        "   -v,--verbose                    Per-stage wall-clock timings\n"
+        "   --profile      <dir>            Write a torch.profiler trace to <dir>/trace.json,\n"
+        "                                   with the host spans on a track of their own\n"
+        "   -v,--verbose                    Per-stage wall-clock timings, then each span's\n"
+        "                                   count, total and self time, and the counters\n"
     )
 
 

@@ -35,6 +35,7 @@ import torch
 
 from . import _kernels
 from . import lfsr
+from ..utils import tracing
 from .grain_ref import lane_offsets, plane_grain_lanes
 from .offsets import block_offsets
 
@@ -106,9 +107,12 @@ def add_grain_batch_plain(y, u, v, bases, tables: dict, *, bs: int,
     y: (F, R*16, C*16); u, v: (F, R*bh_c, C*bw_c); uint8 or uint16.
     ``bases``: F uint32 lattice bases (ops/lfsr.py).  Returns new planes.
     """
-    lat = _lattice(bases, y)
-    return _grain_planes_plain((y, u, v), [lat] * 3, [_rows_above(lat)] * 3,
-                               tables, bs=bs, csubx=csubx, csuby=csuby)
+    with tracing.span("grain.prep"):
+        lat = _lattice(bases, y)
+        lat_up = _rows_above(lat)
+    with tracing.span("grain.kernels"):
+        return _grain_planes_plain((y, u, v), [lat] * 3, [lat_up] * 3,
+                                   tables, bs=bs, csubx=csubx, csuby=csuby)
 
 
 def _as_int32_words(lat: torch.Tensor) -> torch.Tensor:
@@ -417,17 +421,21 @@ def add_grain_batch_natural(y, u, v, bases, bases_up, tables: dict, *,
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"no grain kernel for device {dev}")
     geo = dict(csubx=csubx, csuby=csuby)
-    lat = _lattice(bases, y)
-    if mode in ("kernel", "chunk"):
-        words = [_as_int32_words(lat)] * 3
-    else:
-        words = _lane_words3(lat, expand=mode, active=_active(tables), **geo)
-    if dev.type == "cpu":
-        return _grain_planes_plain((y, u, v), words,
-                                   [_rows_above(w) for w in words], tables,
-                                   bs=bs, **geo)
-    return tuple(grain_plane_cuda(p, words[c], tables, c=c, bs=bs, **geo)
-                 for c, p in enumerate((y, u, v)))
+    with tracing.span("grain.prep"):
+        lat = _lattice(bases, y)
+        if mode in ("kernel", "chunk"):
+            words = [_as_int32_words(lat)] * 3
+        else:
+            words = _lane_words3(lat, expand=mode, active=_active(tables),
+                                 **geo)
+        if dev.type == "cpu":
+            words_up = [_rows_above(w) for w in words]
+    with tracing.span("grain.kernels"):
+        if dev.type == "cpu":
+            return _grain_planes_plain((y, u, v), words, words_up, tables,
+                                       bs=bs, **geo)
+        return tuple(grain_plane_cuda(p, words[c], tables, c=c, bs=bs, **geo)
+                     for c, p in enumerate((y, u, v)))
 
 
 def add_grain_shard_natural(y, u, v, states, states_up, ov_mask,

@@ -36,6 +36,7 @@ import torch
 
 from . import _kernels
 from . import lfsr
+from ..utils import tracing
 from .grain_fast import build_segments, build_window_table
 from .grain_natural import _check_batch, _check_plane, _rows_above
 from .offsets import block_offsets
@@ -317,14 +318,14 @@ def _tiled_batch(y, u, v, bases, tables, *, R, C, bs, csubx, csuby,
     three planes.  ``chip_smoke.py`` and the card tests also run it with
     :func:`plane_tiled_natural_plain` on CUDA tensors to hold the kernel
     against its plain version."""
-    lat = lfsr.state_lattice_torch(bases, R, C, y.device)
-    lat_up = _rows_above(lat)
-    out = []
-    for c, plane in enumerate((y, u, v)):
-        args, kw = _plane_args(plane, c, lat, lat_up, tables, bs=bs,
-                               csubx=csubx, csuby=csuby)
-        out.append(plane_fn(*args, **kw))
-    return tuple(out)
+    with tracing.span("grain.prep"):
+        lat = lfsr.state_lattice_torch(bases, R, C, y.device)
+        lat_up = _rows_above(lat)
+        planes = [_plane_args(plane, c, lat, lat_up, tables, bs=bs,
+                              csubx=csubx, csuby=csuby)
+                  for c, plane in enumerate((y, u, v))]
+    with tracing.span("grain.kernels"):
+        return tuple(plane_fn(*args, **kw) for args, kw in planes)
 
 
 def _plane_args(plane, c, lat, lat_up, tables, *, bs, csubx, csuby):

@@ -9,6 +9,7 @@ switches exactly like the C statics, vfgs_main.c:771-781).
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 
@@ -22,7 +23,7 @@ from .ops import lfsr
 from .ops.grain_natural import (add_grain_batch_natural,
                                 add_grain_batch_plain, natural_tables)
 from .ops.grain_pallas import add_grain_batch_pallas, pallas_tables
-from .utils import parsers, yuv
+from .utils import parsers, tracing, yuv
 from .utils.parsers import ConfigError, _check
 
 MAX_CONFIGS = 64
@@ -266,36 +267,41 @@ class GrainPipeline:
         key = (self.engine, self._cfg_generation)
         if self._tables_cache is None or self._tables_cache[0] != key:
             make = pallas_tables if self.engine == "pallas" else natural_tables
-            self._tables_cache = (key, make(self.regs, self.device))
+            with tracing.span("tables"):
+                self._tables_cache = (key, make(self.regs, self.device))
+            tracing.count("table_uploads")
         return self._tables_cache[1]
 
     def _step(self, y, u, v, bases, bases_up, tables):
         """Grain a batch of padded device planes with the selected engine."""
         kw = dict(bs=self.regs.bs, csubx=self.regs.csubx,
                   csuby=self.regs.csuby)
-        if self.engine in ("natural", "pallas"):
-            step = (add_grain_batch_natural if self.engine == "natural"
-                    else add_grain_batch_pallas)
-            return step(y, u, v, bases, bases_up, tables, height=self.height,
-                        width=self.width, **kw)
-        return add_grain_batch_plain(y, u, v, bases, tables, **kw)
+        with tracing.span("step"):
+            if self.engine in ("natural", "pallas"):
+                step = (add_grain_batch_natural if self.engine == "natural"
+                        else add_grain_batch_pallas)
+                return step(y, u, v, bases, bases_up, tables,
+                            height=self.height, width=self.width, **kw)
+            return add_grain_batch_plain(y, u, v, bases, tables, **kw)
 
     def pop_cfg(self, frame: int) -> None:
         """Re-read/validate/adjust/re-init for the next scheduled config."""
         _check(self.icfg < len(self.configs), "No configuration to pop")
-        poc, filename = self.configs[self.icfg]
-        parsers.read_cfg(filename, self.sei, self.afgs1)
-        check_cfg(self.sei, self.afgs1, self.fmt, self.depth)
-        adjust_chroma_cfg(self.sei, self.fmt)
-        apply_gain(self.gain, self.sei, self.afgs1)
-        self.icfg += 1
-        if self.grain_offset:
-            # Sharded mode: an AFGS1 reseed epoch is the config's global POC
-            # (where the full seek-0 run would have popped it), keeping shard
-            # output identical to the full run.
-            self._init_fw(poc)
-        else:
-            self._init_fw(frame)
+        with tracing.span("config_pop"):
+            poc, filename = self.configs[self.icfg]
+            parsers.read_cfg(filename, self.sei, self.afgs1)
+            check_cfg(self.sei, self.afgs1, self.fmt, self.depth)
+            adjust_chroma_cfg(self.sei, self.fmt)
+            apply_gain(self.gain, self.sei, self.afgs1)
+            self.icfg += 1
+            if self.grain_offset:
+                # Sharded mode: an AFGS1 reseed epoch is the config's global
+                # POC (where the full seek-0 run would have popped it),
+                # keeping shard output identical to the full run.
+                self._init_fw(poc)
+            else:
+                self._init_fw(frame)
+        tracing.count("config_pops")
 
     def maybe_switch_config(self, n: int) -> None:
         while (self.icfg < len(self.configs)
@@ -334,11 +340,13 @@ class GrainPipeline:
     def frame_bases(self, n: int) -> tuple[int, int]:
         """LFSR lattice bases for frame n (see ops/lfsr.py)."""
         R, C = self._R, self._C
-        e0 = lfsr.frame_base_exponent(n + self.grain_offset - self.epoch,
-                                      R, C)
-        base = int(lfsr.advance(np.uint32(self.regs.seed_state), e0))
-        base_up = (int(lfsr.advance(np.uint32(self.regs.seed_state), e0 - C))
-                   if e0 > 0 else base)
+        with tracing.span("frame_bases"):
+            e0 = lfsr.frame_base_exponent(n + self.grain_offset - self.epoch,
+                                          R, C)
+            base = int(lfsr.advance(np.uint32(self.regs.seed_state), e0))
+            base_up = (int(lfsr.advance(np.uint32(self.regs.seed_state),
+                                        e0 - C))
+                       if e0 > 0 else base)
         return base, base_up
 
     # ------------------------------------------------------------------
@@ -425,9 +433,10 @@ class GrainPipeline:
         On CUDA, batch N+1 is read and staged in pinned host memory while
         batch N computes, and batch N's device-to-host copy is waited for
         only when it is written out, one batch later.  ``profile_dir``
-        writes a torch.profiler trace (``trace.json``) of the loop;
-        ``verbose`` prints per-stage wall-clock to stderr."""
-        import time as _time
+        writes a torch.profiler trace (``trace.json``) of the loop with the
+        host spans of ``utils/tracing.py`` on a track of their own;
+        ``verbose`` prints the stages' wall-clock to stderr, then each
+        span's count, total and self time and the counters."""
         from .utils import native_io
         use_native = native_io.available()
 
@@ -487,16 +496,7 @@ class GrainPipeline:
 
         n = 0
         eof = False
-        pending = None  # (host outputs, ready event or None, count)
-        prof = None
-        if profile_dir:
-            from torch.profiler import ProfilerActivity, profile
-            os.makedirs(profile_dir, exist_ok=True)
-            prof = profile(activities=[ProfilerActivity.CPU]
-                           + ([ProfilerActivity.CUDA] if cuda else []))
-            prof.__enter__()
-        t_read = t_step = t_write = 0.0
-        t_start = _time.perf_counter()
+        pending = None  # (host outputs, ready event or None, count, n0)
 
         def prepare(n0):
             """Stage the batch starting at global frame ``n0``: pop any due
@@ -504,9 +504,10 @@ class GrainPipeline:
             START their copy to the device, and resolve the tables of the
             (possibly new) config.  Called for batch N+1 right after batch
             N's step is enqueued, so the host work overlaps the compute."""
-            nonlocal eof, t_read
+            nonlocal eof
             if eof or (frames and n0 >= frames):
                 return None
+            tracing.set_batch(n0)
             self.maybe_switch_config(n0)
             # frames until the next config switch
             limit = batch
@@ -517,97 +518,138 @@ class GrainPipeline:
             if frames:
                 limit = min(limit, frames - n0)
             raws = []
-            t0 = _time.perf_counter()
-            for _ in range(limit):
-                raw = read_raw()
-                if raw is None:
-                    eof = True
-                    break
-                raws.append(raw)
+            with tracing.span("read"):
+                for _ in range(limit):
+                    raw = read_raw()
+                    if raw is None:
+                        eof = True
+                        break
+                    raws.append(raw)
             if not raws:
-                t_read += _time.perf_counter() - t0
                 return None
             count = len(raws)
-            host = [torch.empty((count, *s), dtype=tdtype, pin_memory=cuda)
-                    for s in shapes]
-            views = [h.numpy() for h in host]
-            for i, raw in enumerate(raws):
-                for view, plane, (ph, pw) in zip(views, self._split_frame(raw),
-                                                 shapes):
-                    view[i] = yuv.pad_plane(plane, ph, pw)
-            t_read += _time.perf_counter() - t0
+            with tracing.span("stage"):
+                host = [torch.empty((count, *s), dtype=tdtype,
+                                    pin_memory=cuda) for s in shapes]
+                views = [h.numpy() for h in host]
+                for i, raw in enumerate(raws):
+                    for view, plane, (ph, pw) in zip(
+                            views, self._split_frame(raw), shapes):
+                        view[i] = yuv.pad_plane(plane, ph, pw)
             bases, bases_up = zip(*(self.frame_bases(n0 + i)
                                     for i in range(count)))
-            dev = [h.to(self.device, non_blocking=True) for h in host]
+            with tracing.span("upload"):
+                dev = [h.to(self.device, non_blocking=True) for h in host]
             # resolve the tables NOW: a later prepare() may pop the next
             # config before this batch runs
             return dev, bases, bases_up, self._tables(), count
 
         def start_download(out):
             """Enqueue the device-to-host copy of a batch's outputs."""
-            if not cuda:
-                return [o.numpy() for o in out], None
-            host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                    for o in out]
-            for h, o in zip(host, out):
-                h.copy_(o, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-            return [h.numpy() for h in host], ready
+            with tracing.span("download"):
+                if not cuda:
+                    return [o.numpy() for o in out], None
+                host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
+                        for o in out]
+                for h, o in zip(host, out):
+                    h.copy_(o, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record()
+                return [h.numpy() for h in host], ready
 
         def flush(p):
-            (yo, uo, vo), ready, count = p
-            if ready is not None:
-                ready.synchronize()
+            (yo, uo, vo), ready, count, n0 = p
+            tracing.set_batch(n0)
+            with tracing.span("wait"):
+                if ready is not None:
+                    ready.synchronize()
             for i in range(count):
-                planes = (yo[i, :self.height, :self.width],
-                          uo[i, :ch, :cw], vo[i, :ch, :cw])
-                if odepth < self.depth:
-                    planes = yuv.to_8bit(planes)
-                if use_native:
-                    writer.put(np.concatenate(
-                        [np.ascontiguousarray(q).view(np.uint8).reshape(-1)
-                         for q in planes]))
-                else:
-                    yuv.write_frame(fdst, planes, odepth)
+                with tracing.span("assemble"):
+                    planes = (yo[i, :self.height, :self.width],
+                              uo[i, :ch, :cw], vo[i, :ch, :cw])
+                    if odepth < self.depth:
+                        planes = yuv.to_8bit(planes)
+                    if use_native:
+                        raw = np.concatenate(
+                            [np.ascontiguousarray(q).view(np.uint8)
+                             .reshape(-1) for q in planes])
+                with tracing.span("put"):
+                    if use_native:
+                        writer.put(raw)
+                        # Release the frame now: held until the next
+                        # frame's concatenation, it cost the 1080p pipe
+                        # about a tenth of its frame rate (H100 host).
+                        del raw
+                    else:
+                        yuv.write_frame(fdst, planes, odepth)
 
-        try:
-            cur = prepare(0)
-            while cur is not None:
-                dev, bases, bases_up, tables, count = cur
-                t0 = _time.perf_counter()
-                out = self._step(*dev, bases, bases_up, tables)
-                # Start this batch's copy back now; flush() waits for it one
-                # batch later, after the next batch has been staged.
-                done = start_download(out)
-                t_step += _time.perf_counter() - t0
-                n += count
-                cur = prepare(n)
-                t0 = _time.perf_counter()
-                if pending is not None:
-                    flush(pending)
-                t_write += _time.perf_counter() - t0
-                pending = (*done, count)
-            t0 = _time.perf_counter()
-            if pending is not None:
-                flush(pending)
-            t_write += _time.perf_counter() - t0
-        finally:
-            if prof is not None:
-                prof.__exit__(None, None, None)
-                prof.export_chrome_trace(os.path.join(profile_dir,
-                                                      "trace.json"))
-            if verbose:
-                total = _time.perf_counter() - t_start
-                fps = n / total if total > 0 else 0.0
-                print(f"[vfg-torch] {n} frames in {total:.3f}s ({fps:.1f} fps)"
-                      f" on {self.device} ({self.engine}) | read+stage "
-                      f"{t_read:.3f}s step {t_step:.3f}s drain+write "
-                      f"{t_write:.3f}s", file=sys.stderr)
-            if use_native:
-                reader.close()
-                writer.close()
-            else:
-                fsrc.close()
-                fdst.close()
+        root = None
+        with tracing.forced(verbose or bool(profile_dir)):
+            prof = contextlib.nullcontext()
+            if profile_dir:
+                from torch.profiler import ProfilerActivity, profile
+                os.makedirs(profile_dir, exist_ok=True)
+                prof = profile(activities=[ProfilerActivity.CPU]
+                               + ([ProfilerActivity.CUDA] if cuda else []))
+            try:
+                with prof, tracing.span("run_file") as root:
+                    counted = tracing.counters()
+                    cur = prepare(0)
+                    while cur is not None:
+                        dev, bases, bases_up, tables, count = cur
+                        tracing.set_batch(n)
+                        out = self._step(*dev, bases, bases_up, tables)
+                        # Start this batch's copy back now; flush() waits
+                        # for it one batch later, after the next batch has
+                        # been staged.
+                        done = start_download(out)
+                        tracing.count("frames", count)
+                        tracing.count("batches")
+                        n0 = n
+                        n += count
+                        cur = prepare(n)
+                        if pending is not None:
+                            flush(pending)
+                        pending = (*done, count, n0)
+                    if pending is not None:
+                        flush(pending)
+            finally:
+                if use_native:
+                    reader.close()
+                    writer.close()
+                else:
+                    fsrc.close()
+                    fdst.close()
+                if root is not None and profile_dir:
+                    trace = os.path.join(profile_dir, "trace.json")
+                    prof.export_chrome_trace(trace)
+                    tracing.add_to_chrome_trace(trace, root.spans)
+                if root is not None and verbose:
+                    self._report(n, root, counted)
         return n
+
+    def _report(self, n: int, root, counted: dict) -> None:
+        """``run_file``'s verbose lines: the frame rate and the stages'
+        wall-clock, then each span's count, total and self time, and the
+        counters the run added."""
+        tot = tracing.summary(root.spans, root.i)
+
+        def secs(*names):
+            return sum(tot[k][1] for k in names if k in tot)
+
+        total = secs("run_file")
+        fps = n / total if total > 0 else 0.0
+        lines = [f"{n} frames in {total:.3f}s ({fps:.1f} fps) on "
+                 f"{self.device} ({self.engine}) | read+stage "
+                 f"{secs('read', 'stage'):.3f}s step "
+                 f"{secs('step', 'download'):.3f}s drain+write "
+                 f"{secs('wait', 'assemble', 'put'):.3f}s",
+                 f"{'span':<14}{'count':>8}{'total s':>11}{'self s':>11}"]
+        lines += [f"{k:<14}{c:>8}{t:>11.3f}{own:>11.3f}"
+                  for k, (c, t, own) in tot.items()]
+        now = tracing.counters()
+        lines.append("counters: " + ", ".join(
+            f"{k} {now.get(k, 0) - counted.get(k, 0)}"
+            for k in tracing.COUNTERS))
+        for line in lines:
+            print(f"[vfg-torch] {line}", file=sys.stderr)
