@@ -86,6 +86,72 @@ def test_pipeline_regs_match_jax_with_gain_and_seed():
     assert ref.frame_bases(5) == got.frame_bases(5)
 
 
+BASES_FRAMES = list(range(41)) + [10 ** 4, 10 ** 6]
+
+
+def _bases_pair(case, width, height):
+    """The JAX package's and the port's pipelines at ``width`` x
+    ``height``: as built (``default``), with a grain offset (``offset``),
+    or after an AFGS1 reseed at frame 3 (``afgs1_epoch``, epoch 3)."""
+    path = os.path.join(CFG_DIR, "fgs_afgs1_test1.cfg")
+    kw = dict(offset=dict(grain_offset=777, seed=4242),
+              afgs1_epoch=dict(configs=[f"3:{path}"]),
+              default={})[case]
+    pipes = (mod(JAX_PKG, "pipeline").GrainPipeline(
+                 width, height, 10, 0, engine="fast", **kw),
+             mod(TORCH_PKG, "pipeline").GrainPipeline(
+                 width, height, 10, 0, engine="ref", device="cpu", **kw))
+    for p in pipes:
+        p.maybe_switch_config(3)
+    assert pipes[1].epoch == (3 if case == "afgs1_epoch" else 0)
+    return pipes
+
+
+@pytest.mark.parametrize("case", ["default", "offset", "afgs1_epoch"])
+@pytest.mark.parametrize("width,height", [(1920, 1080), (3840, 2160)],
+                         ids=["1080p", "4k"])
+def test_frame_bases_match_advance_and_jax(case, width, height):
+    """``frame_bases`` (the byte-table jump) gives the two-``advance``
+    formula's bits and the JAX pipeline's, at frames 0-40, 10^4 and 10^6
+    past the epoch."""
+    ref, got = _bases_pair(case, width, height)
+    lfsr = mod(TORCH_PKG, "ops.lfsr")
+    R, C = got._R, got._C
+    assert (R, C) == (-(-height // 16), width // 16)
+    seed = np.uint32(got.regs.seed_state)
+    for n in (got.epoch + f for f in BASES_FRAMES):
+        e0 = lfsr.frame_base_exponent(n + got.grain_offset - got.epoch, R, C)
+        base = int(lfsr.advance(seed, e0))
+        want = (base, int(lfsr.advance(seed, e0 - C)) if e0 else base)
+        bases = got.frame_bases(n)
+        assert all(type(b) is int for b in bases)
+        assert bases == want == ref.frame_bases(n), n
+
+
+def test_frame_bases_before_the_epoch_fail_in_both():
+    """A frame before an AFGS1 reseed's epoch has a negative exponent:
+    both packages stop on the jump's assert."""
+    for pipe in _bases_pair("afgs1_epoch", 256, 192):
+        with pytest.raises(AssertionError):
+            pipe.frame_bases(0)
+
+
+def test_frame_bases_build_no_tables_after_the_first_call(monkeypatch):
+    """The jump tables are built by a process's first call at most: the
+    ``lfsr_tables`` counter stays put across 100 more."""
+    tracing = mod(TORCH_PKG, "utils.tracing")
+    monkeypatch.setattr(tracing, "_R", tracing.Recorder())
+    _, pipe = _bases_pair("default", 1920, 1080)
+    with tracing.forced():
+        pipe.frame_bases(1)
+        built = tracing.counters().get("lfsr_tables", 0)
+        for n in range(100):
+            pipe.frame_bases(37 * n ** 3)
+        assert tracing.counters().get("lfsr_tables", 0) == built
+        assert tracing.summary(tracing.record()["spans"])[
+            "frame_bases"][0] == 101
+
+
 def test_import_leaves_jax_out():
     code = ("import sys, versatilefilmgrain_tpu_torch, "
             "versatilefilmgrain_tpu_torch.cli, "

@@ -21,7 +21,10 @@ This module computes ``A^e`` by square-and-multiply on a column representation
 over arbitrarily-shaped state arrays in numpy and torch).  That replaces the
 serial dependency with an embarrassingly parallel per-(frame, row, col) state
 lattice: every block row of every frame can be grained independently while
-staying bit-exact with the C model.
+staying bit-exact with the C model.  One state held as a Python int (a
+frame's lattice base) jumps instead through byte tables of the cached
+``A^(2^k)`` (:func:`advance_int`): four lookups and three XORs per set bit of
+``e``, no matrix composed per call.
 
 Torch lattices are int64 tensors holding the uint32 values: torch has no
 shifts on uint32/uint16 tensors on the CPU, so the arithmetic runs in int64
@@ -34,6 +37,8 @@ import functools
 
 import numpy as np
 import torch
+
+from ..utils import tracing
 
 MASK32 = np.uint32(0xFFFFFFFF)
 
@@ -101,6 +106,47 @@ def advance(state, e: int):
     if e == 0:
         return state
     return apply_cols(power_cols(e), state)
+
+
+# Bits of the exponent whose byte tables are built together (one block).
+TABLE_BITS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _byte_tables(block: int) -> list[tuple[list[int], ...]]:
+    """Byte tables of ``A^(2^k)`` for the ``TABLE_BITS`` values of k from
+    ``block * TABLE_BITS``: entry k holds four 256-entry tables, entry v
+    of table b being ``A^(2^k)`` applied to ``v << 8*b`` (the XOR of
+    ``cols[8*b + j]`` over the set bits j of v).  Built once per process,
+    with numpy."""
+    ks = range(block * TABLE_BITS, (block + 1) * TABLE_BITS)
+    cols = np.stack([jump_cols_pow2(k) for k in ks]).reshape(-1, 4, 1, 8)
+    bits = (np.arange(256, dtype=np.uint32)[:, None]
+            >> np.arange(8, dtype=np.uint32)) & 1           # (256, 8)
+    tables = np.bitwise_xor.reduce(cols * bits, axis=-1)    # (k, 4, 256)
+    tracing.count("lfsr_tables", TABLE_BITS)
+    return [tuple(t) for t in tables.tolist()]
+
+
+def advance_int(state: int, e: int) -> int:
+    """A^e . state for one uint32 ``state`` and python-int e >= 0, as a
+    python int; the same bits as :func:`advance`.  Powers of A commute, so
+    the jumps of e's set bits apply in any order."""
+    assert e >= 0
+    s = int(state)
+    block, k = 0, 0
+    tables = _byte_tables(0)
+    while e:
+        if k == TABLE_BITS:
+            block, k = block + 1, 0
+            tables = _byte_tables(block)
+        if e & 1:
+            t0, t1, t2, t3 = tables[k]
+            s = (t0[s & 255] ^ t1[s >> 8 & 255] ^ t2[s >> 16 & 255]
+                 ^ t3[s >> 24])
+        e >>= 1
+        k += 1
+    return s
 
 
 def state_lattice_np(base: int, rows: int, cols: int) -> np.ndarray:

@@ -343,9 +343,8 @@ class GrainPipeline:
         with tracing.span("frame_bases"):
             e0 = lfsr.frame_base_exponent(n + self.grain_offset - self.epoch,
                                           R, C)
-            base = int(lfsr.advance(np.uint32(self.regs.seed_state), e0))
-            base_up = (int(lfsr.advance(np.uint32(self.regs.seed_state),
-                                        e0 - C))
+            base = lfsr.advance_int(self.regs.seed_state, e0)
+            base_up = (lfsr.advance_int(self.regs.seed_state, e0 - C)
                        if e0 > 0 else base)
         return base, base_up
 
