@@ -8,7 +8,8 @@ grain of the same seeded input at frame ``n`` of the stream, sample for
 sample, and frames offered that never came out count as missing.  The
 reference works out its own register file, patterns, LUTs and per-frame
 lattice bases, and regenerates the inputs from the seed; it takes nothing
-the program made.  It runs after the window, once the driver has read
+the program made; it pops the configuration's cfg schedule at the POCs
+the program is given.  It runs after the window, once the driver has read
 the memory peak and freed the program's state, one frame at a time.
 
 Numbers compared, each with its limit:
@@ -17,7 +18,10 @@ Numbers compared, each with its limit:
   reference, at most 0;
 * ``frames_missing``: frames offered that never came out, at most 0;
 * ``frames_checked``: frames compared, at least the driver's target (every
-  position of a batch and the last frame).
+  position of a batch and the last frame; with the pipe driver also the
+  frame at each kept switch's POC and the frame before it).
+
+The verdict also lists the kept frames that differ (``wrong_frames``).
 """
 
 from __future__ import annotations
@@ -33,11 +37,12 @@ def verify(cell, record: dict, seed: int, device: str) -> dict:
     from portbench.reference.model import Reference
     c = cell.config
     W, H, D, fmt = c["width"], c["height"], c["depth"], c["chroma_format"]
-    ref = Reference(W, H, D, fmt, cell.cfg_path())
+    ref = Reference(W, H, D, fmt, cell.schedule())
     dev = torch.device(device)
     cw, ch = frames.chroma_dims(W, H, fmt)
     crop = ((H, W), (ch, cw), (ch, cw))
-    mismatched = wrong = checked = 0
+    mismatched = checked = 0
+    wrong = []
     for n, pool_index, planes in record["samples"]:
         inp = frames.padded_frame(W, H, D, fmt, seed, pool_index)
         want = ref.grain(*(torch.from_numpy(np.ascontiguousarray(p)).to(dev)
@@ -54,7 +59,8 @@ def verify(cell, record: dict, seed: int, device: str) -> dict:
             else:
                 diff += int((got.to(torch.int32) != w.to(torch.int32)).sum())
         mismatched += diff
-        wrong += diff > 0
+        if diff:
+            wrong.append(n)
         checked += 1
     checks = {
         "mismatched_samples": dict(value=mismatched, rule="<=", limit=0),
@@ -65,5 +71,5 @@ def verify(cell, record: dict, seed: int, device: str) -> dict:
     }
     correct = all(v["value"] <= v["limit"] if v["rule"] == "<="
                   else v["value"] >= v["limit"] for v in checks.values())
-    return dict(correct=correct, checks=checks,
-                failed=int(record["missing"]) + wrong)
+    return dict(correct=correct, checks=checks, wrong_frames=wrong,
+                failed=int(record["missing"]) + len(wrong))

@@ -2,14 +2,15 @@
 cells' own sizes, on the card (the benchmark's own runs run none of this).
 
     python -m portbench.control --workload <name> [...] --seeds 11,12,13
-        [--seconds 2] [--kinds control,unchanged,half_batch,altered]
+        [--seconds 2] [--kinds sound,control,...,late_switch]
 
 For each cell, seed and kind it runs the cell in this process with the
 fault planted (``faults.py``; ``sound`` plants nothing) and prints one
 line: cell, kind, seed, ``correct``, ``failed`` and each number compared.
-Each cell runs the kinds its traffic mix can have (``faults.kinds_for``):
-a batch of one has no half to leave out, and only the pipe driver's frames
-leave through the program's writer.
+Each cell runs the kinds its traffic mix and configuration can have
+(``faults.kinds_for``): a batch of one has no half to leave out, only the
+pipe driver's frames leave through the program's writer, and only a
+configuration that pops a cfg past frame 0 can switch late.
 """
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ def main(argv=None) -> int:
         return 2
     root = os.path.dirname(run.PKG)
     for cell in a.workload:
-        can = faults.kinds_for(run.Cell(root, cell).traffic)
+        c = run.Cell(root, cell)
+        can = faults.kinds_for(c.traffic, c.schedule())
         for kind in a.kinds.split(","):
             if kind != "sound" and kind not in can:
                 continue

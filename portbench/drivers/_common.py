@@ -18,15 +18,34 @@ def geometry(config: dict):
             config["chroma_format"])
 
 
-def make_pipeline(ctx):
+def make_pipeline(ctx, schedule=None):
     """The program's ``GrainPipeline`` for the cell's configuration: the
-    CLI's built-in config, then the configuration's cfg popped at frame 0
-    (``-c 0:<cfg>``); grain seed and gain the CLI's defaults."""
+    CLI's built-in config, then the configuration's cfg schedule
+    (``schedule``, default the cell's: ``[(poc, cfg path), ...]``) as
+    ``-c POC:<cfg>``; grain seed and gain the CLI's defaults."""
     from versatilefilmgrain_tpu_torch import GrainPipeline
-    cfg = ctx.cell.cfg_path()
+    if schedule is None:
+        schedule = ctx.cell.schedule()
     return GrainPipeline(*geometry(ctx.config),
-                         configs=[f"0:{cfg}"] if cfg else [],
+                         configs=[f"{poc}:{cfg}" for poc, cfg in schedule],
                          device=ctx.device)
+
+
+def switches(ctx) -> list[int]:
+    """The POCs past frame 0 at which the cell's configuration pops a cfg,
+    each once."""
+    return sorted({poc for poc, _ in ctx.cell.schedule() if poc > 0})
+
+
+def pops_at_frame_0_only(ctx, driver: str) -> None:
+    """Refuse a configuration that pops a cfg past frame 0: ``driver``
+    pops only at a step's first frame and builds its tables once, so it
+    would grain the frames after a switch with stale tables."""
+    from portbench.run import Refused
+    late = switches(ctx)
+    if late:
+        raise Refused(f"the {driver} driver pops cfgs only at frame 0; "
+                      f"the configuration switches at frames {late}")
 
 
 def pool_planes(ctx, count: int):

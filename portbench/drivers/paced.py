@@ -10,7 +10,8 @@ synchronizes on the step's completion.  A frame's latency runs from
 its due time to that synchronize's return on the host clock, so a stall
 charges every frame behind it; how late each frame's step started is kept
 as the generator's lateness.  Spans: ``wait`` (the paced wait),
-``frame_bases``, ``step``, ``drain`` (the synchronize).
+``frame_bases``, ``step``, ``drain`` (the synchronize).  A configuration
+that pops a cfg past frame 0 is refused.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ def run(ctx) -> dict:
 
     t = ctx.traffic
     rate, npool = float(t["rate_fps"]), t["pool_frames"]
+    _common.pops_at_frame_0_only(ctx, "paced")
     pipe = _common.make_pipeline(ctx)
     pipe.maybe_switch_config(0)
     tables = gn.natural_tables(pipe.regs, ctx.device)

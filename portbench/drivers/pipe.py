@@ -12,6 +12,13 @@ window opens as the timed ``run_file`` is called; the feeder writes whole
 frames until the window closes, then the program drains what it holds.
 ``fps_pipe`` counts the frames that left ``dst`` inside the window.
 
+A configuration whose cfg schedule pops past frame 0 warms up on a
+pipeline of its own that pops every cfg of the schedule at frame 0, so
+that nothing the switches build is built in the window; the timed pipeline
+is made after the warm-up and pops only its frame-0 entries in set-up, so
+the timed stream meets every switch.  The sink then also keeps the frames
+at up to ``SWITCH_SLOTS`` switches and the frames before them.
+
 In a traced run the pipeline's ``frame_bases`` and ``_step`` and the
 native reader's and writer's calls are wrapped in spans (``frame_bases``,
 ``step``, ``read``, ``drain``), and ``run_file`` runs with ``verbose`` so
@@ -35,6 +42,7 @@ import numpy as np
 
 from portbench import affinity, frames
 from portbench.drivers import _common
+from portbench.drivers._sink import SWITCH_SLOTS
 
 VERBOSE = re.compile(r"read\+stage ([0-9.]+)s step ([0-9.]+)s "
                      r"drain\+write ([0-9.]+)s")
@@ -112,12 +120,15 @@ def run(ctx) -> dict:
         "--fifo", src, "--width", W, "--height", H, "--depth", D, "--fmt",
         fmt, "--seed", ctx.seed, "--pool", npool, "--pipe-bytes",
         t["pipe_bytes"]])
+    switches = _common.switches(ctx)
     sink = _helper(ctx, "_sink", 1, [
         "--fifo", dst, "--frame-bytes", fb, "--seed", ctx.seed,
         "--positions", batch, "--per-position", t["check_per_position"],
-        "--pipe-bytes", t["pipe_bytes"]])
+        "--pipe-bytes", t["pipe_bytes"],
+        "--switches", ",".join(map(str, switches))])
     try:
-        pipe = _common.make_pipeline(ctx)
+        pipe = _common.make_pipeline(ctx, [
+            (0, cfg) for _, cfg in ctx.cell.schedule()] if switches else None)
         ctx.mark("pipeline")
         if feed.stdout.readline().strip() != b"ready":
             raise RuntimeError("the feeder did not start")
@@ -128,6 +139,10 @@ def run(ctx) -> dict:
         pipe.run_file(src, dst, batch=batch)
         _fed(feed)
         _sink_result(sink, fb)
+        if switches:
+            del pipe
+            pipe = _common.make_pipeline(ctx)
+            pipe.maybe_switch_config(0)
         _common.settle(ctx.device)
         ctx.mark("warm-up")
 
@@ -169,12 +184,14 @@ def run(ctx) -> dict:
     samples = [(n, n % npool, frames.split_raw(raw, W, H, D, fmt))
                for n, raw in kept]
     slots = batch * t["check_per_position"]
+    at_switches = min(SWITCH_SLOTS, sum(p < received for p in switches))
     done = [a - t0 for a in head["arrivals"]]
     return dict(
         setup_s=t0 - ctx.t_start, seconds=ctx.seconds, attempted=offered,
         missing=abs(offered - received) + (head["partial_bytes"] > 0),
         samples=samples, crop=True,
-        check_target=min(slots, received) + (received > 0),
+        check_target=min(slots, received) + (received > 0)
+        + 2 * at_switches,
         done=done, frames=out_frames, batch=batch,
         geometry=_common.geometry(ctx.config), spans=ctx.spans.seconds,
         trace=ctx.trace.result, runfile=runfile,
@@ -182,4 +199,8 @@ def run(ctx) -> dict:
         notes=[f"{offered} frames offered, {received} came out "
                f"({sum(d <= ctx.seconds for d in done)} inside the "
                f"{ctx.seconds:g} s window); pipes of {pipe_bytes} and "
-               f"{head['pipe_bytes']} bytes"])
+               f"{head['pipe_bytes']} bytes"] + ([
+                   f"{at_switches} of the {len(switches)} config switches "
+                   f"reached, frames kept at POCs "
+                   + " ".join(map(str, head["at_switches"]))
+                   + " and the frames before them"] if switches else []))

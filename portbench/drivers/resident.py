@@ -15,7 +15,7 @@ does: after enqueuing step k the loop waits for step k-1.  No step is issued
 after the window closes, and the window ends in a synchronize.  A frame
 counts for ``fps_resident`` when its step completed on the device inside
 the window.  Spans: ``frame_bases``, ``step``, ``drain`` (the wait for the
-step before).
+step before).  A configuration that pops a cfg past frame 0 is refused.
 """
 
 from __future__ import annotations
@@ -32,6 +32,7 @@ def run(ctx) -> dict:
 
     t = ctx.traffic
     batch, nbatches = t["batch"], t["pool_batches"]
+    _common.pops_at_frame_0_only(ctx, "resident")
     pipe = _common.make_pipeline(ctx)
     pipe.maybe_switch_config(0)       # the configuration's pop at frame 0
     tables = gn.natural_tables(pipe.regs, ctx.device)

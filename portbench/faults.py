@@ -6,7 +6,8 @@ Each patches the program's classes and modules in this process for the
 duration of a ``with`` block, under every driver: the pipe drivers reach
 the step through ``GrainPipeline._step``, the resident and paced drivers
 through ``grain_natural.add_grain_batch_natural``, and all of them take
-the frame bases from ``GrainPipeline.frame_bases``.
+the frame bases from ``GrainPipeline.frame_bases``, and every one pops the
+configuration's cfgs through ``GrainPipeline.maybe_switch_config``.
 
 * ``control``: breaks the configuration's guarantee that frames come out
   in order: frame n is grained with frame n+1's grain (the LFSR sequence
@@ -17,23 +18,33 @@ the frame bases from ``GrainPipeline.frame_bases``.
 * ``altered``: one sample of each frame's luma plane is altered (its low
   bit flipped) where the step produces it;
 * ``dropped`` (pipe driver): the program's frame writer drops one frame in
-  ten, so fewer frames come out than went in.
+  ten, so fewer frames come out than went in;
+* ``late_switch`` (pipe driver, a configuration that pops a cfg past
+  frame 0): each cfg pop takes effect one frame late, so ``run_file``
+  grains the frame at each switch's POC, alone in its batch, with the
+  config before it.
 """
 
 from __future__ import annotations
 
 import contextlib
 
-KINDS = ("control", "unchanged", "half_batch", "altered", "dropped")
+KINDS = ("control", "unchanged", "half_batch", "altered", "dropped",
+         "late_switch")
 
 
-def kinds_for(traffic: dict) -> list[str]:
-    """The kinds a cell of the mix ``traffic`` can have: ``half_batch``
-    where a step holds more than one frame, ``dropped`` where the frames
-    leave through the program's writer (the ``pipe`` driver)."""
+def kinds_for(traffic: dict, schedule) -> list[str]:
+    """The kinds a cell of the mix ``traffic`` whose configuration pops
+    ``schedule`` (``[(poc, cfg), ...]``) can have: ``half_batch`` where a
+    step holds more than one frame, ``dropped`` where the frames leave
+    through the program's writer (the ``pipe`` driver), ``late_switch``
+    where they do and the schedule pops past frame 0."""
+    pipe = traffic["driver"] == "pipe"
+    switches = any(poc > 0 for poc, _ in schedule)
     return [k for k in KINDS
             if not (k == "half_batch" and traffic.get("batch", 1) <= 1)
-            and not (k == "dropped" and traffic["driver"] != "pipe")]
+            and not (k == "dropped" and not pipe)
+            and not (k == "late_switch" and not (pipe and switches))]
 
 
 def _broken(step, kind: str):
@@ -63,9 +74,12 @@ def planted(kind: str):
     if kind not in KINDS:
         raise ValueError(f"unknown fault {kind!r}: one of {KINDS}")
     GP, FW = pipeline.GrainPipeline, native_io.FrameWriter
-    saved = (GP.frame_bases, GP._step, gn.add_grain_batch_natural, FW.put)
+    saved = (GP.frame_bases, GP._step, gn.add_grain_batch_natural, FW.put,
+             GP.maybe_switch_config)
     if kind == "control":
         GP.frame_bases = lambda self, n: saved[0](self, n + 1)
+    elif kind == "late_switch":
+        GP.maybe_switch_config = lambda self, n: saved[4](self, n - 1)
     elif kind == "dropped":
         puts = iter(range(1 << 62))
 
@@ -79,8 +93,8 @@ def planted(kind: str):
     try:
         yield
     finally:
-        (GP.frame_bases, GP._step, gn.add_grain_batch_natural,
-         FW.put) = saved
+        (GP.frame_bases, GP._step, gn.add_grain_batch_natural, FW.put,
+         GP.maybe_switch_config) = saved
 
 
 def _step_of(step, kind: str):

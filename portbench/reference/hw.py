@@ -29,6 +29,13 @@ class HwRegs:
         self.c_min, self.c_max = 0, 255
         self.csubx, self.csuby = 2, 2
 
+    def copy(self) -> "HwRegs":
+        """A copy that shares no array with this register file."""
+        new = HwRegs.__new__(HwRegs)
+        new.__dict__ = {k: v.copy() if isinstance(v, np.ndarray) else v
+                        for k, v in vars(self).items()}
+        return new
+
     # -- setters (vfgs_hw.c:314-388) ------------------------------------
 
     def set_luma_pattern(self, index: int, p: np.ndarray) -> None:

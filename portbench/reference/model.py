@@ -4,8 +4,8 @@ bases) and its plain torch grain engine, frozen here so that the program
 under test can change without moving the yardstick.
 
 It imports nothing of the program.  Given a configuration's geometry and
-cfg file and the same input planes, it works out the register file, the
-patterns, the LUTs and every frame's lattice bases for itself
+cfg schedule and the same input planes, it works out the register file,
+the patterns, the LUTs and every frame's lattice bases for itself
 (vfgs_main.c:69-125, 208-298, 762-796).
 """
 
@@ -102,13 +102,29 @@ def check_cfg(sei, afgs1, fmt: int, depth: int) -> None:
         check_cfg_sei(sei, fmt, depth)
 
 
+class _State:
+    """The register file and reseed epoch in force from frame ``start``
+    on, with its tables by device, built once."""
+
+    def __init__(self, start: int, regs: HwRegs, epoch: int):
+        self.start, self.regs, self.epoch = start, regs, epoch
+        self.tables = {}
+
+
 class Reference:
     """The C model's state for one stream: the built-in FGC SEI config,
-    then ``cfg`` (a cfg file path) popped at frame 0 when given.  Grain
-    seed and gain are the CLI's defaults (``-r 0``, ``-g 100``)."""
+    then each ``(poc, cfg path)`` of ``schedule`` popped at its POC, in
+    order, as the frame loop's ``-c POC:file`` list (vfgs_main.c:762-796).
+    A pop reads the cfg over the parsed state, checks it, adjusts the
+    chroma values and re-inits the FW over the register file, so what it
+    does not overwrite stays in force; an AFGS1 pop reseeds at its frame.
+    A pop that fails to read or check raises: the C model would go on
+    with the previous config, which is a fault of the configuration and
+    no path to hold a program to.  Grain seed and gain are the CLI's
+    defaults (``-r 0``, ``-g 100``)."""
 
     def __init__(self, width: int, height: int, depth: int, fmt: int,
-                 cfg: str | None = None):
+                 schedule=()):
         self.width, self.height, self.depth, self.fmt = (width, height,
                                                          depth, fmt)
         self.sei, self.afgs1 = cfgmod.default_sei(), cfgmod.default_afgs1()
@@ -120,12 +136,15 @@ class Reference:
                                          2 if fmt < YUV_422 else 1)
         adjust_chroma_cfg(self.sei, fmt)
         self._init_fw(0)
-        if cfg is not None:
+        self.states = [_State(0, self.regs.copy(), self.epoch)]
+        for poc, cfg in schedule:
             parsers.read_cfg(cfg, self.sei, self.afgs1)
             check_cfg(self.sei, self.afgs1, fmt, depth)
             adjust_chroma_cfg(self.sei, fmt)
-            self._init_fw(0)
-        self._tables = {}
+            self._init_fw(poc)
+            if self.states[-1].start == poc:
+                self.states.pop()
+            self.states.append(_State(poc, self.regs.copy(), self.epoch))
 
     def _init_fw(self, frame: int) -> None:
         if self.afgs1.num_y_points:
@@ -134,35 +153,41 @@ class Reference:
         else:
             fw.init_sei(self.sei, self.regs)
 
+    def state(self, n: int) -> _State:
+        """The state in force at frame ``n``."""
+        return [s for s in self.states if s.start <= n][-1]
+
     def frame_bases(self, n: int) -> tuple[int, int]:
         """LFSR lattice base of frame ``n`` and of the block row above its
         first (lfsr.py)."""
+        st = self.state(n)
         R, C = -(-self.height // 16), -(-self.width // 16)
-        e0 = lfsr.frame_base_exponent(n - self.epoch, R, C)
-        seed = np.uint32(self.regs.seed_state)
+        e0 = lfsr.frame_base_exponent(n - st.epoch, R, C)
+        seed = np.uint32(st.regs.seed_state)
         base = int(lfsr.advance(seed, e0))
         return base, (int(lfsr.advance(seed, e0 - C)) if e0 > 0 else base)
 
-    def tables(self, device) -> dict:
-        """The register file's patterns, LUTs and clip range on ``device``."""
-        key = str(device)
-        if key not in self._tables:
-            r = self.regs
-            self._tables[key] = dict(
+    def tables(self, n: int, device) -> dict:
+        """The patterns, LUTs and clip range in force at frame ``n``, on
+        ``device``."""
+        st, key = self.state(n), str(device)
+        if key not in st.tables:
+            r = st.regs
+            st.tables[key] = dict(
                 pattern=torch.tensor(r.pattern, device=device),
                 sluts=torch.tensor(r.slut, device=device),
                 pluts=torch.tensor(r.plut, device=device),
                 scale_shift=int(r.scale_shift), y_min=int(r.y_min),
                 y_max=int(r.y_max), c_min=int(r.c_min), c_max=int(r.c_max))
-        return self._tables[key]
+        return st.tables[key]
 
     def grain(self, y, u, v, n: int):
         """Frame ``n`` of the stream grained from its padded input planes
         (2-D torch tensors, uint8 or uint16); returns the padded outputs on
         the planes' device."""
-        r = self.regs
+        r = self.state(n).regs
         base, base_up = self.frame_bases(n)
         return add_grain_frame(y, u, v, base, base_up,
-                               **self.tables(y.device), height=self.height,
+                               **self.tables(n, y.device), height=self.height,
                                width=self.width, bs=r.bs, csubx=r.csubx,
                                csuby=r.csuby)

@@ -8,7 +8,10 @@ file of its own, found by name, so that a cell, a mix or a metric is added
 with new files and a ``BENCHMARK.json`` entry and no edit:
 
 * ``portbench/configs/<file>``: the configuration (geometry, depth, chroma
-  format, the cfg popped at frame 0), named by the ``configs`` entry;
+  format, and either ``cfg``, the cfg file popped at frame 0, or
+  ``schedule``, ``[[poc, "file.cfg"], ...]``, the C model's ``-c POC:file``
+  list popped in order), named by the ``configs`` entry, with its cfg
+  files beside it;
 * ``portbench/traffic/<traffic>.json``: the mix's parameters and the name
   of its driver;
 * ``portbench/drivers/<driver>.py``: ``run(ctx)`` sets up, warms up, runs
@@ -59,6 +62,11 @@ def forbidden_loaded(modules=None) -> list[str]:
     return sorted(names & set(FORBIDDEN))
 
 
+class Refused(Exception):
+    """A driver cannot run the cell's configuration: the run exits 2 with
+    the message and prints no result."""
+
+
 class Cell:
     """A workload of ``BENCHMARK.json`` under ``root`` with its
     configuration, traffic mix, driver and metrics, found by name."""
@@ -76,6 +84,7 @@ class Cell:
         self.config_file = os.path.join(root, conf["file"])
         with open(self.config_file) as f:
             self.config = json.load(f)
+        self._schedule = self._read_schedule()
         with open(os.path.join(self.pkg, "traffic",
                                self.entry["traffic"] + ".json")) as f:
             self.traffic = json.load(f)
@@ -90,11 +99,36 @@ class Cell:
     def _has(self, metric: dict) -> bool:
         return "workloads" not in metric or self.name in metric["workloads"]
 
-    def cfg_path(self) -> str | None:
-        """The cfg file the configuration pops at frame 0, if any."""
-        cfg = self.config.get("cfg")
-        return (os.path.join(os.path.dirname(self.config_file), cfg)
-                if cfg else None)
+    def _read_schedule(self) -> list[tuple[int, str]]:
+        c, where = self.config, self.config_file
+        if "cfg" in c and "schedule" in c:
+            raise ValueError(f"{where}: gives both 'cfg' and 'schedule'")
+        if "schedule" in c:
+            entries = c["schedule"]
+        else:
+            entries = [[0, c["cfg"]]] if c.get("cfg") else []
+        if not isinstance(entries, list):
+            raise ValueError(f"{where}: 'schedule' is not a list")
+        out = []
+        for e in entries:
+            if not (isinstance(e, list) and len(e) == 2
+                    and type(e[0]) is int and e[0] >= 0
+                    and isinstance(e[1], str) and e[1]):
+                raise ValueError(f"{where}: a schedule entry is [poc, "
+                                 f"\"file.cfg\"], poc 0 or more: {e!r}")
+            if out and e[0] < out[-1][0]:
+                raise ValueError(f"{where}: the schedule's POCs decrease "
+                                 f"at {e!r}")
+            path = os.path.join(os.path.dirname(where), e[1])
+            if not os.path.isfile(path):
+                raise ValueError(f"{where}: no cfg file {path}")
+            out.append((e[0], path))
+        return out
+
+    def schedule(self) -> list[tuple[int, str]]:
+        """The configuration's cfg pops, ``[(poc, cfg path), ...]`` in
+        order: ``"cfg": X`` is ``[(0, X)]``, no cfg is ``[]``."""
+        return list(self._schedule)
 
     def read(self, metric: dict, record: dict):
         """The metric's value from its reader, or None."""
@@ -217,6 +251,9 @@ def main(argv=None, *, t_start: float | None = None, root: str | None = None,
         driver = load_file(cell.driver_file,
                            "portbench_driver_" + cell.traffic["driver"])
         record = driver.run(ctx)
+    except Refused as e:
+        print(f"portbench: {e}; no result", file=sys.stderr)
+        return 2
     except Exception:
         traceback.print_exc()
         print("portbench: the run failed; no result", file=sys.stderr)
@@ -250,8 +287,12 @@ def main(argv=None, *, t_start: float | None = None, root: str | None = None,
                                    idle_gaps=tr["idle_gaps"])
     if device.startswith("cuda"):
         result["card"] = card_line()
-    for line in [ctx.setup_line(t_start + record["setup_s"])] + \
-            record.get("notes", []):
+    notes = [ctx.setup_line(t_start + record["setup_s"])] + \
+        record.get("notes", [])
+    if verdict["wrong_frames"]:
+        notes.append("kept frames that differ from the reference: "
+                     + " ".join(map(str, verdict["wrong_frames"])))
+    for line in notes:
         print(f"portbench: {line}", file=sys.stderr)
     result["checks"] = verdict["checks"]
     for name, c in verdict["checks"].items():

@@ -3,8 +3,10 @@
 At each position of a batch (frame index modulo the batch) ``per_position``
 frames are kept by reservoir sampling, so every frame at that position has
 the same chance whatever the window's length, and a fault at any position
-of a batch is met.  The driver keeps the last frame as well.  Numpy only:
-the pipe's sink process uses it.
+of a batch is met.  The driver keeps the last frame as well.  The pipe's
+sink draws the config switches whose frames it keeps the same way, one
+position, from a stream of its own (``key``).  Numpy only: the sink
+process uses it.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ import numpy as np
 
 
 class Sampler:
-    def __init__(self, seed: int, positions: int, per_position: int):
-        self.rng = np.random.default_rng([seed % (1 << 64), 0x5A3])
+    def __init__(self, seed: int, positions: int, per_position: int,
+                 key: int = 0x5A3):
+        self.rng = np.random.default_rng([seed % (1 << 64), key])
         self.per = per_position
         self.seen = [0] * positions
         self.kept: dict[int, int] = {}     # slot -> frame index

@@ -13,19 +13,34 @@ import shutil
 PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO = os.path.dirname(PKG)
 
-# Small configurations of the same deployments: 10-bit FGC SEI and 8-bit
-# AFGS1 with a height off the block grid.
+GOLDEN_CFG = os.path.join(REPO, "tests", "golden", "cfg")
+
+# Small configurations of the same deployments: 10-bit FGC SEI, 8-bit
+# AFGS1 with a height off the block grid, and the latter switching between
+# AFGS1 cfgs (the golden vectors, copied beside it) at POCs that cut
+# batches of 8.
 SMALL = {
     "small10_sei": dict(width=256, height=192, depth=10, chroma_format=0,
                         cfg=None),
     "small8_afgs1": dict(width=256, height=200, depth=8, chroma_format=0,
                          cfg="fgs_afgs1_test2.cfg"),
+    "small8_afgs1_scenes": dict(
+        width=256, height=200, depth=8, chroma_format=0,
+        schedule=[[0, "fgs_afgs1_test2.cfg"], [5, "fgs_afgs1_test4.cfg"],
+                  [13, "fgs_afgs1_test7.cfg"], [22, "fgs_afgs1_test10.cfg"],
+                  [35, "fgs_afgs1_test16.cfg"]]),
 }
 SMALL_CELLS = {
     "small10_sei.pipe": ("small10_sei", "pipe_b8"),
     "small10_sei.resident": ("small10_sei", "resident_b8"),
     "small8_afgs1.live60": ("small8_afgs1", "live60_b1"),
     "small8_afgs1.pipe": ("small8_afgs1", "pipe_b8"),
+    "small8_afgs1_scenes.pipe": ("small8_afgs1_scenes", "pipe_b8"),
+}
+# Cells whose driver refuses their configuration's mid-stream switches.
+REFUSED_CELLS = {
+    "small8_afgs1_scenes.resident": ("small8_afgs1_scenes", "resident_b8"),
+    "small8_afgs1_scenes.live60": ("small8_afgs1_scenes", "live60_b1"),
 }
 
 
@@ -56,9 +71,13 @@ def make_root(dest: str) -> str:
         path = f"portbench/configs/{name}.json"
         with open(os.path.join(dest, path), "w") as f:
             json.dump(dict(geo, source="test"), f)
+        for _, cfg in geo.get("schedule", []):
+            copy = os.path.join(dest, "portbench", "configs", cfg)
+            if not os.path.exists(copy):
+                shutil.copy(os.path.join(GOLDEN_CFG, cfg), copy)
         bench["configs"].append(dict(name=name, source="test", file=path,
                                      reduced=[], why="test"))
-    for name, (config, traffic) in SMALL_CELLS.items():
+    for name, (config, traffic) in {**SMALL_CELLS, **REFUSED_CELLS}.items():
         bench["workloads"].append(dict(name=name, config=config,
                                        traffic=traffic, chips=1, why="test"))
         kind = name.split(".")[1]
@@ -92,3 +111,12 @@ def traffic_of(cell: str) -> dict:
     path = os.path.join(PKG, "traffic", SMALL_CELLS[cell][1] + ".json")
     with open(path) as f:
         return json.load(f)
+
+
+def schedule_of(cell: str) -> list:
+    """The cfg schedule of small cell ``cell``'s configuration, as
+    ``[(poc, cfg file name), ...]``."""
+    geo = SMALL[SMALL_CELLS[cell][0]]
+    if "schedule" in geo:
+        return [tuple(e) for e in geo["schedule"]]
+    return [(0, geo["cfg"])] if geo["cfg"] else []

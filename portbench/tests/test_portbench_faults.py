@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import pytest
 
-from cells import SMALL_CELLS, run_cell, traffic_of
+from cells import SMALL_CELLS, run_cell, schedule_of, traffic_of
 from portbench import faults
 
 
@@ -27,7 +27,7 @@ def test_sound_run_is_correct(bench_root, cell):
 
 
 CASES = [(cell, kind) for cell in sorted(SMALL_CELLS)
-         for kind in faults.kinds_for(traffic_of(cell))]
+         for kind in faults.kinds_for(traffic_of(cell), schedule_of(cell))]
 
 
 @pytest.mark.parametrize("cell,kind", CASES)
@@ -41,16 +41,22 @@ def test_planted_fault_is_not_correct(bench_root, cell, kind):
     assert res["checks"][failing]["value"] > 0
 
 
-@pytest.mark.parametrize("traffic,kinds", [
-    (dict(driver="pipe", batch=8), list(faults.KINDS)),
-    (dict(driver="pipe", batch=1),
+SWITCHING = [(0, "a.cfg"), (13, "b.cfg")]
+
+
+@pytest.mark.parametrize("traffic,schedule,kinds", [
+    (dict(driver="pipe", batch=8), SWITCHING, list(faults.KINDS)),
+    (dict(driver="pipe", batch=8), [(0, "a.cfg")],
+     ["control", "unchanged", "half_batch", "altered", "dropped"]),
+    (dict(driver="pipe", batch=1), [],
      ["control", "unchanged", "altered", "dropped"]),
-    (dict(driver="resident", batch=8),
+    (dict(driver="resident", batch=8), SWITCHING,
      ["control", "unchanged", "half_batch", "altered"]),
-    (dict(driver="paced", rate_fps=60),
+    (dict(driver="paced", rate_fps=60), [],
      ["control", "unchanged", "altered"])])
-def test_kinds_follow_the_traffic_not_the_cell_name(traffic, kinds):
-    assert faults.kinds_for(traffic) == kinds
+def test_kinds_follow_the_traffic_not_the_cell_name(traffic, schedule,
+                                                    kinds):
+    assert faults.kinds_for(traffic, schedule) == kinds
 
 
 def test_faults_are_removed_after_the_block():
@@ -61,7 +67,8 @@ def test_faults_are_removed_after_the_block():
     def current():
         return (pipeline.GrainPipeline.frame_bases,
                 pipeline.GrainPipeline._step, gn.add_grain_batch_natural,
-                native_io.FrameWriter.put)
+                native_io.FrameWriter.put,
+                pipeline.GrainPipeline.maybe_switch_config)
     before = current()
     for kind in faults.KINDS:
         with faults.planted(kind):

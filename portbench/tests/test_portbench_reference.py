@@ -33,7 +33,7 @@ def _pipeline(W, H, D, cfg):
 @pytest.mark.parametrize("W,H,D,cfg", GEOMETRIES)
 def test_reference_equals_program_frame_by_frame(W, H, D, cfg):
     pipe = _pipeline(W, H, D, cfg)
-    ref = Reference(W, H, D, 0, cfg)
+    ref = Reference(W, H, D, 0, [(0, cfg)] if cfg else [])
     for n in (0, 1, 7, 40):
         planes = frames.frame_planes(W, H, D, 0, 99, n)
         got = pipe.process_frame(planes, n)
@@ -49,7 +49,7 @@ def test_reference_equals_program_frame_by_frame(W, H, D, cfg):
 def test_reference_equals_program_batched_step(W, H, D, cfg):
     from versatilefilmgrain_tpu_torch.ops import grain_natural as gn
     pipe = _pipeline(W, H, D, cfg)
-    ref = Reference(W, H, D, 0, cfg)
+    ref = Reference(W, H, D, 0, [(0, cfg)] if cfg else [])
     pool = [frames.padded_frame(W, H, D, 0, 5, i) for i in range(4)]
     y, u, v = (torch.from_numpy(np.stack([f[c] for f in pool]))
                for c in range(3))
@@ -67,9 +67,9 @@ def test_reference_equals_program_batched_step(W, H, D, cfg):
 
 def test_reference_bases_follow_the_afgs1_epoch():
     # AFGS1 reseeds at its pop: frame 0's base is the seed state itself
-    ref = Reference(256, 200, 8, 0, CFG)
+    ref = Reference(256, 200, 8, 0, [(0, CFG)])
     base, up = ref.frame_bases(0)
-    assert base == up == ref.regs.seed_state
+    assert base == up == ref.state(0).regs.seed_state
     assert ref.frame_bases(1)[0] != base
 
 
