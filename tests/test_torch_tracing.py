@@ -3,7 +3,8 @@
 ``verbose``, it records every layer's span with its parent and batch on
 the profiler's clock; the ``-v`` line is summed from the spans; a
 profiler session after an off stretch starts a fresh record; output bytes
-do not depend on it; and the benchmark's four readers of it read it."""
+do not depend on it; and the benchmark's readers of it read it, those of
+the config switch path per pop, per build and per batch."""
 
 import json
 import os
@@ -193,11 +194,57 @@ def test_config_switches_count_pops_and_table_uploads(pocs, tmp_path,
     c = got["counters"]
     assert c["config_pops"] == tot["config_pop"][0] == len(pocs)
     assert c["table_uploads"] == tot["tables"][0] == len(pocs) + 1
-    # a batch never straddles a switch: frames [0, 2), [2, 6), [6, 10)
+    # a batch never straddles a switch: frames [0, 2), [2, 6), [6, 10);
+    # the switch at 2 cuts the first batch short, the one at 6 cuts none
     assert c["batches"] == 3 and c["frames"] == NFR
+    assert c["switch_cuts"] == 1
+    # each pop's read and FW re-init lie inside its config_pop span
+    spans = got["spans"]
+    for name in ("cfg_read", "fw_init"):
+        inner = [s for s in spans if s[0] == name]
+        assert len(inner) == len(pocs), name
+        for _, s, e, parent, _ in inner:
+            assert spans[parent][0] == "config_pop"
+            assert spans[parent][1] <= s <= e <= spans[parent][2]
     err = capsys.readouterr().err
-    assert (f"counters: frames {NFR}, batches 3, config_pops {len(pocs)}, "
-            f"table_uploads {len(pocs) + 1}") in err
+    assert (f"counters: frames {NFR}, batches 3, switch_cuts 1, "
+            f"config_pops {len(pocs)}, table_uploads {len(pocs) + 1}") in err
+
+
+def _scene_cuts(pocs, batch, nfr, frames=0):
+    """The batches that the schedule's switches cut short: a scene [a, b)
+    that ends at a switch and is no whole number of batches, unless the
+    stream ends first (at ``nfr`` frames read to their end) or at the
+    switch (at ``frames`` frames asked for)."""
+    starts = [0] + [p for p in pocs if p > 0]
+    return sum(1 for a, b in zip(starts, starts[1:])
+               if (b - a) % batch and (b < frames if frames else b <= nfr))
+
+
+@pytest.mark.parametrize("pocs,batch,nfr,frames", [
+    ((2,), 4, 10, 0), ((3, 5, 13), 4, 16, 0), ((4, 8), 4, 12, 0),
+    ((1, 2, 3), 4, 10, 0), ((0, 3, 3, 7), 3, 12, 0),
+    ((10,), 4, 10, 0),       # a switch where the unread stream ends
+    ((10,), 4, 12, 10),      # ... and where the asked-for frames end
+    ((11,), 4, 10, 0),       # the stream ends inside the cut batch
+    ((5, 9), 8, 12, 7)])     # the asked-for frames end inside a scene
+def test_switch_cuts_count_the_batches_the_schedule_cuts(
+        pocs, batch, nfr, frames, tmp_path):
+    src = _source(tmp_path, depth=8, frames=nfr)
+    cfg = os.path.join(CFG_DIR, "fgs_afgs1_test2.cfg")
+    pipe = GrainPipeline(W, H, 8, 0, configs=[f"{p}:{cfg}" for p in pocs],
+                         device="cpu")
+    n, _ = _profiled(lambda: pipe.run_file(
+        src, str(tmp_path / "out.yuv"), frames=frames, batch=batch))
+    assert n == (frames or nfr)
+    want = _scene_cuts(pocs, batch, nfr, frames)
+    assert tracing.record()["counters"].get("switch_cuts", 0) == want
+    # and each cut batch is one that ends at a switch, short of a batch
+    starts = sorted({s[4] for s in tracing.record()["spans"]
+                     if s[0] == "frame_bases"}) + [n]
+    short = [b for a, b in zip(starts, starts[1:])
+             if b - a < batch and b in pocs and (not frames or b < frames)]
+    assert len(short) == want
 
 
 @pytest.mark.parametrize("depth,odepth", [(10, 0), (10, 8), (8, 0)])
@@ -213,6 +260,25 @@ def test_output_bytes_do_not_depend_on_the_recorder(depth, odepth,
         n = _profiled(run)[0] if on else run()
         assert n == NFR
         outs.append(dst.read_bytes())
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("batch", [BATCH, 3])
+def test_output_bytes_across_switches_do_not_depend_on_the_recorder(
+        batch, tmp_path):
+    src = _source(tmp_path, depth=8)
+    cfgs = [f"{poc}:{os.path.join(CFG_DIR, f'fgs_afgs1_test{k}.cfg')}"
+            for poc, k in ((1, 14), (2, 1), (7, 12))]
+    outs = []
+    for on in (False, True):
+        dst = tmp_path / f"out{int(on)}.yuv"
+        pipe = GrainPipeline(W, H, 8, 0, configs=cfgs, device="cpu")
+        run = lambda: pipe.run_file(src, str(dst), batch=batch,  # noqa
+                                    verbose=on)
+        n = _profiled(run)[0] if on else run()
+        assert n == NFR
+        outs.append(dst.read_bytes())
+    assert tracing.record()["counters"]["config_pops"] == 3
     assert outs[0] == outs[1]
 
 
@@ -262,3 +328,73 @@ def test_benchmark_readers_read_the_recorder(metric, tmp_path):
         entry = {m["name"]: m for m in json.load(f)["per_layer"]}[metric]
     assert entry["source"] == "program_span"
     assert entry["unit"] == ("%" if kind == "self" else "ms")
+
+
+# The readers of the switch path: a span's mean per pop or build, or the
+# share of batches cut at a switch.
+SWITCH_READERS = {"cfg_read_ms.scenes": "cfg_read",
+                  "fw_init_ms.scenes": "fw_init",
+                  "tables_ms.scenes": "tables",
+                  "cut_batch_pct.scenes": "switch_cuts"}
+
+
+def _reader(metric):
+    return load_file(os.path.join(REPO, "portbench", "metrics",
+                                  metric + ".py"),
+                     "reader_" + metric.replace(".", "_"))
+
+
+@pytest.mark.parametrize("metric", sorted(SWITCH_READERS))
+def test_switch_readers_read_the_recorder_per_switch(metric, tmp_path):
+    reader = _reader(metric)
+    assert reader.read(dict(frames=NFR)) is None       # nothing recorded
+    src = _source(tmp_path)
+    # switches at 1, 2 and 6 in batches of 4: [0, 1) and [1, 2) are cut
+    # short, [2, 6) and [6, 10) are whole; luma-only and chroma-from-luma
+    # scenes among them
+    cfgs = [f"{poc}:{os.path.join(CFG_DIR, f'fgs_afgs1_test{k}.cfg')}"
+            for poc, k in ((1, 2), (2, 6), (6, 15))]
+    pipe = GrainPipeline(W, H, 10, 0, configs=cfgs, device="cpu")
+    _profiled(lambda: pipe.run_file(src, str(tmp_path / "out.yuv"),
+                                    batch=BATCH, verbose=True))
+    tot, got = _totals()
+    name = SWITCH_READERS[metric]
+    if name == "switch_cuts":
+        c = got["counters"]
+        assert (c["switch_cuts"], c["batches"]) == (2, 4)
+        want = 50.0
+    else:
+        count, total, _ = tot[name]
+        assert count == (4 if name == "tables" else 3)
+        want = 1e3 * total / count
+    assert reader.read(dict(frames=NFR)) == pytest.approx(want)
+    assert reader.read(dict(frames=NFR + 1)) is None   # another run's
+    with open(os.path.join(REPO, "BENCHMARK.json")) as f:
+        entry = {m["name"]: m for m in json.load(f)["per_layer"]}[metric]
+    assert entry["source"] == ("program_counter" if name == "switch_cuts"
+                               else "program_span")
+    assert entry["unit"] == ("%" if name == "switch_cuts" else "ms")
+    assert entry["workloads"] == ["fhd8_afgs1.scenes"]
+    assert entry["moves"] == "fps_pipe"
+
+
+def test_switch_readers_without_switches_or_their_counter(tmp_path,
+                                                          monkeypatch):
+    """A run that pops nothing has no pop spans to read, one table build
+    and no cut; a program without the ``switch_cuts`` counter (one from
+    before it) reads no share."""
+    src = _source(tmp_path)
+    pipe = GrainPipeline(W, H, 10, 0, device="cpu")
+    _profiled(lambda: pipe.run_file(src, str(tmp_path / "out.yuv"),
+                                    batch=BATCH, verbose=True))
+    rec = dict(frames=NFR)
+    assert _reader("cfg_read_ms.scenes").read(rec) is None
+    assert _reader("fw_init_ms.scenes").read(rec) is None
+    count, total, _ = _totals()[0]["tables"]
+    assert count == 1
+    assert _reader("tables_ms.scenes").read(rec) == pytest.approx(
+        1e3 * total)
+    assert _reader("cut_batch_pct.scenes").read(rec) == 0.0
+    monkeypatch.setattr(tracing, "COUNTERS", tuple(
+        c for c in tracing.COUNTERS if c != "switch_cuts"))
+    assert _reader("cut_batch_pct.scenes").read(rec) is None

@@ -252,15 +252,16 @@ class GrainPipeline:
         # The reference aborts on an out-of-range scale shift (assert,
         # vfgs_hw.c:348, e.g. --gain driving log2_scale_factor out of [2,8));
         # we fail with a config error instead.
-        try:
-            if self.afgs1.num_y_points:
-                fw.init_afgs1(self.afgs1, self.regs)
-                self.epoch = frame  # init_afgs1 reseeds (vfgs_fw.c:672)
-            else:
-                fw.init_sei(self.sei, self.regs)
-        except ValueError as e:
-            raise FatalConfigError(str(e))
-        self._cfg_generation += 1
+        with tracing.span("fw_init"):
+            try:
+                if self.afgs1.num_y_points:
+                    fw.init_afgs1(self.afgs1, self.regs)
+                    self.epoch = frame  # init_afgs1 reseeds (vfgs_fw.c:672)
+                else:
+                    fw.init_sei(self.sei, self.regs)
+            except ValueError as e:
+                raise FatalConfigError(str(e))
+            self._cfg_generation += 1
 
     def _tables(self) -> dict:
         """Device tables of the current config, uploaded once per config."""
@@ -289,10 +290,11 @@ class GrainPipeline:
         _check(self.icfg < len(self.configs), "No configuration to pop")
         with tracing.span("config_pop"):
             poc, filename = self.configs[self.icfg]
-            parsers.read_cfg(filename, self.sei, self.afgs1)
-            check_cfg(self.sei, self.afgs1, self.fmt, self.depth)
-            adjust_chroma_cfg(self.sei, self.fmt)
-            apply_gain(self.gain, self.sei, self.afgs1)
+            with tracing.span("cfg_read"):
+                parsers.read_cfg(filename, self.sei, self.afgs1)
+                check_cfg(self.sei, self.afgs1, self.fmt, self.depth)
+                adjust_chroma_cfg(self.sei, self.fmt)
+                apply_gain(self.gain, self.sei, self.afgs1)
             self.icfg += 1
             if self.grain_offset:
                 # Sharded mode: an AFGS1 reseed epoch is the config's global
@@ -508,14 +510,14 @@ class GrainPipeline:
                 return None
             tracing.set_batch(n0)
             self.maybe_switch_config(n0)
-            # frames until the next config switch
-            limit = batch
+            # frames until the next config switch; the batch is cut there
+            # unless the stream ends first
+            limit, cut = batch, False
             if self.icfg < len(self.configs):
-                limit = min(limit,
-                            max(1, self.configs[self.icfg][0]
-                                - (n0 + self.seek)))
-            if frames:
-                limit = min(limit, frames - n0)
+                due = max(1, self.configs[self.icfg][0] - (n0 + self.seek))
+                limit, cut = min(limit, due), due < limit
+            if frames and frames - n0 <= limit:
+                limit, cut = frames - n0, False
             raws = []
             with tracing.span("read"):
                 for _ in range(limit):
@@ -526,6 +528,8 @@ class GrainPipeline:
                     raws.append(raw)
             if not raws:
                 return None
+            if cut and not eof:
+                tracing.count("switch_cuts")
             count = len(raws)
             with tracing.span("stage"):
                 host = [torch.empty((count, *s), dtype=tdtype,

@@ -27,11 +27,12 @@ import time
 from torch.autograd import profiler as _profiler
 
 NULL = contextlib.nullcontext()
-# The counters: frames and batches through run_file's batched loop, config
-# pops that succeeded, device tables built, LFSR jump tables built (one per
-# bit of the exponent, ops/lfsr.py).
-COUNTERS = ("frames", "batches", "config_pops", "table_uploads",
-            "lfsr_tables")
+# The counters: frames and batches through run_file's batched loop, the
+# batches it cut short at a config switch, config pops that succeeded,
+# device tables built, LFSR jump tables built (one per bit of the exponent,
+# ops/lfsr.py).
+COUNTERS = ("frames", "batches", "switch_cuts", "config_pops",
+            "table_uploads", "lfsr_tables")
 
 
 class _Thread(threading.local):
