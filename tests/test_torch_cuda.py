@@ -861,3 +861,23 @@ def test_traced_run_file_spans_stay_off_the_device_timeline(cuda_device,
     assert on_device and not names & on_device
     GrainPipeline(W, H, 10, 0, device="cpu").run_file(inp, want, batch=4)
     assert open(out, "rb").read() == open(want, "rb").read()
+
+
+@pytest.mark.parametrize("odepth", [0, 8])
+def test_run_file_reuses_its_slots_on_card(odepth, cuda_device, tmp_path):
+    """``run_file`` on the card at batch 2 over 64 frames: 32 batches
+    through two pinned input and two pinned output slots, each restaged
+    while the other's copies may be in flight, byte-equal to a --device cpu
+    run (10 bits out, and 8); its host buffers are made once."""
+    from versatilefilmgrain_tpu_torch import GrainPipeline
+    from versatilefilmgrain_tpu_torch.utils import tracing
+    inp = _designer_input(tmp_path, W, H, 64)
+    out, want = str(tmp_path / "out.yuv"), str(tmp_path / "cpu.yuv")
+    with tracing.forced():
+        assert GrainPipeline(W, H, 10, 0).run_file(inp, out, odepth=odepth,
+                                                   batch=2) == 64
+        c = tracing.counters()
+    assert c["batches"] == 32 and c["staging_allocs"] == 2 + 3 * 2 + 2
+    GrainPipeline(W, H, 10, 0, device="cpu").run_file(inp, want,
+                                                      odepth=odepth, batch=2)
+    assert open(out, "rb").read() == open(want, "rb").read()

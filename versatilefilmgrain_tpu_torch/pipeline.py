@@ -413,16 +413,38 @@ class GrainPipeline:
 
     # -- batched high-throughput file pipeline --------------------------
 
-    def _split_frame(self, raw: np.ndarray):
-        """View a raw frame byte buffer as (Y, U, V) planes."""
+    def _split_frame(self, raw: np.ndarray, depth: int = 0):
+        """View a raw frame byte buffer (or an array of them, one a row)
+        as (Y, U, V) planes of ``depth`` bits (the input's unless given)."""
         w, h = self.width, self.height
         cw, ch = yuv.chroma_dims(w, h, self.fmt)
-        dt = np.uint8 if self.depth == 8 else np.dtype("<u2")
+        dt = np.uint8 if (depth or self.depth) == 8 else np.dtype("<u2")
         arr = raw.view(dt)
-        y = arr[:w * h].reshape(h, w)
-        u = arr[w * h:w * h + cw * ch].reshape(ch, cw)
-        v = arr[w * h + cw * ch:w * h + 2 * cw * ch].reshape(ch, cw)
-        return y, u, v
+        shapes = ((h, w), (ch, cw), (ch, cw))
+        ends = np.cumsum([0] + [a * b for a, b in shapes])
+        return tuple(arr[..., a:b].reshape(*arr.shape[:-1], *s)
+                     for a, b, s in zip(ends, ends[1:], shapes))
+
+    def _host_buffers(self, slots: int, odepth: int, pinned: bool):
+        """``run_file``'s host buffers, made once a call and counted as
+        ``staging_allocs``: ``slots`` raw input frames; two input slots,
+        each ``slots`` padded (Y, U, V) planes; two output slots, each
+        ``slots`` whole output frames of ``odepth`` bits, as a uint8 array
+        of (slots, frame bytes).  The slots are pinned where ``pinned``.
+        Returns (raws, inputs, outputs)."""
+        R, C = self._R, self._C
+        bhc, bwc = 16 // self.regs.csuby, 16 // self.regs.csubx
+        shapes = ((R * 16, C * 16), (R * bhc, C * bwc), (R * bhc, C * bwc))
+        dtype = torch.uint8 if self.depth == 8 else torch.uint16
+        fbytes = yuv.frame_bytes(self.width, self.height, self.depth, self.fmt)
+        obytes = yuv.frame_bytes(self.width, self.height, odepth, self.fmt)
+        raws = [np.empty(fbytes, np.uint8) for _ in range(slots)]
+        inputs = [[torch.empty((slots, *s), dtype=dtype, pin_memory=pinned)
+                   for s in shapes] for _ in range(2)]
+        outputs = [torch.empty((slots, obytes), dtype=torch.uint8,
+                               pin_memory=pinned) for _ in range(2)]
+        tracing.count("staging_allocs", slots + 3 * 2 + 2)
+        return raws, inputs, outputs
 
     def run_file(self, src: str, dst: str, frames: int = 0, odepth: int = 0,
                  batch: int = 4, profile_dir: str | None = None,
@@ -433,7 +455,12 @@ class GrainPipeline:
 
         On CUDA, batch N+1 is read and staged in pinned host memory while
         batch N computes, and batch N's device-to-host copy is waited for
-        only when it is written out, one batch later.  ``profile_dir``
+        only when it is written out, one batch later.  Every host buffer
+        of the loop is made once a call (:meth:`_host_buffers`) and reused
+        batch after batch: the input and output batches alternate between
+        two slots; frames are padded in place into an input slot, and the
+        copy back crops each frame into an output slot laid out as the
+        output file, whose rows the writer takes.  ``profile_dir``
         writes a torch.profiler trace (``trace.json``) of the loop with the
         host spans of ``utils/tracing.py`` on a track of their own;
         ``verbose`` prints the stages' wall-clock to stderr, then each
@@ -470,12 +497,8 @@ class GrainPipeline:
         assert odepth in (8, 10) and odepth <= self.depth
         fbytes = yuv.frame_bytes(self.width, self.height, self.depth, self.fmt)
         obytes = yuv.frame_bytes(self.width, self.height, odepth, self.fmt)
-        R, C = self._R, self._C
-        bhc, bwc = 16 // self.regs.csuby, 16 // self.regs.csubx
-        cw, ch = yuv.chroma_dims(self.width, self.height, self.fmt)
-        shapes = ((R * 16, C * 16), (R * bhc, C * bwc), (R * bhc, C * bwc))
-        tdtype = torch.uint8 if self.depth == 8 else torch.uint16
         cuda = self.device.type == "cuda"
+        slots = min(batch, frames) if frames else batch
 
         if use_native:
             reader = native_io.FrameReader(src, fbytes, nbuf=max(4, batch),
@@ -487,24 +510,25 @@ class GrainPipeline:
             yuv.skip_frames(fsrc, self.seek, self.width, self.height,
                             self.depth, self.fmt)
 
-        def read_raw():
+        def read_raw(buf):
             if use_native:
-                return reader.next()
-            raw = fsrc.read(fbytes)
-            if len(raw) != fbytes:
-                return None
-            return np.frombuffer(raw, dtype=np.uint8)
+                return reader.next(out=buf)
+            return buf if fsrc.readinto(buf) == fbytes else None
 
         n = 0
         eof = False
-        pending = None  # (host outputs, ready event or None, count, n0)
+        pending = None  # (host outputs, slot, count, n0)
+        # the H2D and D2H copies last enqueued from and to each slot
+        uploaded = [torch.cuda.Event() for _ in range(2)] if cuda else None
+        downloaded = [torch.cuda.Event() for _ in range(2)] if cuda else None
 
-        def prepare(n0):
-            """Stage the batch starting at global frame ``n0``: pop any due
-            config, read + pad the raw frames into (pinned) host tensors,
-            START their copy to the device, and resolve the tables of the
-            (possibly new) config.  Called for batch N+1 right after batch
-            N's step is enqueued, so the host work overlaps the compute."""
+        def prepare(n0, slot):
+            """Stage the batch starting at global frame ``n0`` in input
+            slot ``slot``: pop any due config, read the raw frames into the
+            raw ring, pad them into the slot's (pinned) planes, START their
+            copy to the device, and resolve the tables of the (possibly
+            new) config.  Called for batch N+1 right after batch N's step
+            is enqueued, so the host work overlaps the compute."""
             nonlocal eof
             if eof or (frames and n0 >= frames):
                 return None
@@ -518,73 +542,72 @@ class GrainPipeline:
                 limit, cut = min(limit, due), due < limit
             if frames and frames - n0 <= limit:
                 limit, cut = frames - n0, False
-            raws = []
+            count = 0
             with tracing.span("read"):
-                for _ in range(limit):
-                    raw = read_raw()
-                    if raw is None:
+                while count < limit:
+                    if read_raw(raws[count]) is None:
                         eof = True
                         break
-                    raws.append(raw)
-            if not raws:
+                    count += 1
+            if not count:
                 return None
             if cut and not eof:
                 tracing.count("switch_cuts")
-            count = len(raws)
+            host = inputs[slot]
             with tracing.span("stage"):
-                host = [torch.empty((count, *s), dtype=tdtype,
-                                    pin_memory=cuda) for s in shapes]
-                views = [h.numpy() for h in host]
-                for i, raw in enumerate(raws):
-                    for view, plane, (ph, pw) in zip(
-                            views, self._split_frame(raw), shapes):
-                        view[i] = yuv.pad_plane(plane, ph, pw)
+                if cuda:
+                    # the slot's last upload, two batches back, may still
+                    # be reading it
+                    uploaded[slot].synchronize()
+                for i in range(count):
+                    for view, plane in zip(in_views[slot],
+                                           self._split_frame(raws[i])):
+                        yuv.pad_into(view[i], plane)
             bases, bases_up = zip(*(self.frame_bases(n0 + i)
                                     for i in range(count)))
             with tracing.span("upload"):
-                dev = [h.to(self.device, non_blocking=True) for h in host]
+                # on the CPU .to() returns the slot's planes themselves: the
+                # plain engines return new planes, so two slots suffice
+                dev = [h[:count].to(self.device, non_blocking=True)
+                       for h in host]
+                if cuda:
+                    uploaded[slot].record()
             # resolve the tables NOW: a later prepare() may pop the next
             # config before this batch runs
             return dev, bases, bases_up, self._tables(), count
 
-        def start_download(out):
-            """Enqueue the device-to-host copy of a batch's outputs."""
+        def start_download(out, slot):
+            """Enqueue the copy of a batch's cropped output planes into
+            output slot ``slot``, frame by frame, each frame's planes back
+            to back as the output file holds them (10-bit planes written as
+            8 bits are converted first, as ``yuv.to_8bit`` does).  The slot
+            is free since the flush of the batch that last used it returned
+            (``writer.put`` copies)."""
             with tracing.span("download"):
-                if not cuda:
-                    return [o.numpy() for o in out], None
-                host = [torch.empty(o.shape, dtype=o.dtype, pin_memory=True)
-                        for o in out]
-                for h, o in zip(host, out):
-                    h.copy_(o, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record()
-                return [h.numpy() for h in host], ready
+                for o, rows in zip(out, frame_planes[slot]):
+                    q = o[:, :rows.shape[1], :rows.shape[2]]
+                    if odepth < self.depth:
+                        q = ((q.to(torch.int32) + 2) >> 2).to(torch.uint8)
+                    for i in range(len(o)):
+                        rows[i].copy_(q[i], non_blocking=True)
+                if cuda:
+                    downloaded[slot].record()
+                return out_frames[slot]
 
         def flush(p):
-            (yo, uo, vo), ready, count, n0 = p
+            host, slot, count, n0 = p
             tracing.set_batch(n0)
             with tracing.span("wait"):
-                if ready is not None:
-                    ready.synchronize()
+                if cuda:
+                    downloaded[slot].synchronize()
             for i in range(count):
                 with tracing.span("assemble"):
-                    planes = (yo[i, :self.height, :self.width],
-                              uo[i, :ch, :cw], vo[i, :ch, :cw])
-                    if odepth < self.depth:
-                        planes = yuv.to_8bit(planes)
-                    if use_native:
-                        raw = np.concatenate(
-                            [np.ascontiguousarray(q).view(np.uint8)
-                             .reshape(-1) for q in planes])
+                    frame = host[i]
                 with tracing.span("put"):
                     if use_native:
-                        writer.put(raw)
-                        # Release the frame now: held until the next
-                        # frame's concatenation, it cost the 1080p pipe
-                        # about a tenth of its frame rate (H100 host).
-                        del raw
+                        writer.put(frame)
                     else:
-                        yuv.write_frame(fdst, planes, odepth)
+                        fdst.write(frame)
 
         root = None
         with tracing.forced(verbose or bool(profile_dir)):
@@ -597,7 +620,18 @@ class GrainPipeline:
             try:
                 with prof, tracing.span("run_file") as root:
                     counted = tracing.counters()
-                    cur = prepare(0)
+                    raws, inputs, outputs = self._host_buffers(
+                        slots, odepth, cuda)
+                    in_views = [[h.numpy() for h in s] for s in inputs]
+                    out_frames = [h.numpy() for h in outputs]
+                    # each output slot's frames as (Y, U, V) planes, views
+                    # of (slots, h, w)
+                    frame_planes = [
+                        [torch.from_numpy(p)
+                         for p in self._split_frame(f, odepth)]
+                        for f in out_frames]
+                    slot = 0
+                    cur = prepare(0, slot)
                     while cur is not None:
                         dev, bases, bases_up, tables, count = cur
                         tracing.set_batch(n)
@@ -605,15 +639,16 @@ class GrainPipeline:
                         # Start this batch's copy back now; flush() waits
                         # for it one batch later, after the next batch has
                         # been staged.
-                        done = start_download(out)
+                        done = start_download(out, slot)
                         tracing.count("frames", count)
                         tracing.count("batches")
                         n0 = n
                         n += count
-                        cur = prepare(n)
+                        cur = prepare(n, 1 - slot)
                         if pending is not None:
                             flush(pending)
-                        pending = (*done, count, n0)
+                        pending = (done, slot, count, n0)
+                        slot = 1 - slot
                     if pending is not None:
                         flush(pending)
             finally:

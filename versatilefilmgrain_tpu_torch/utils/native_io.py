@@ -99,11 +99,19 @@ class FrameReader:
         if not self._h:
             raise OSError(f"Can not open file {path}")
 
-    def next(self) -> np.ndarray | None:
-        buf = np.empty(self.frame_bytes, dtype=np.uint8)
+    def next(self, out: np.ndarray | None = None) -> np.ndarray | None:
+        """The next frame, read into ``out`` (a writable contiguous uint8
+        buffer of ``frame_bytes``) or into a new buffer; None at the end."""
+        if out is None:
+            out = np.empty(self.frame_bytes, dtype=np.uint8)
+        elif (out.dtype != np.uint8 or out.size != self.frame_bytes
+              or not out.flags.c_contiguous or not out.flags.writeable):
+            raise ValueError(f"out must be a writable contiguous uint8 "
+                             f"buffer of {self.frame_bytes} bytes, got "
+                             f"{out.dtype} of {out.size}")
         ok = self._lib.vfgsio_reader_next(
-            self._h, buf.ctypes.data_as(ctypes.c_void_p))
-        return buf if ok else None
+            self._h, out.ctypes.data_as(ctypes.c_void_p))
+        return out if ok else None
 
     def close(self):
         if self._h:

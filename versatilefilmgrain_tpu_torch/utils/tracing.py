@@ -30,9 +30,10 @@ NULL = contextlib.nullcontext()
 # The counters: frames and batches through run_file's batched loop, the
 # batches it cut short at a config switch, config pops that succeeded,
 # device tables built, LFSR jump tables built (one per bit of the exponent,
-# ops/lfsr.py).
+# ops/lfsr.py), host frame and batch buffers run_file allocated (once a
+# call, whatever the number of frames).
 COUNTERS = ("frames", "batches", "switch_cuts", "config_pops",
-            "table_uploads", "lfsr_tables")
+            "table_uploads", "lfsr_tables", "staging_allocs")
 
 
 class _Thread(threading.local):

@@ -77,3 +77,13 @@ def pad_plane(p: np.ndarray, ph: int, pw: int) -> np.ndarray:
     if h == ph and w == pw:
         return p
     return np.pad(p, ((0, ph - h), (0, pw - w)), mode="edge")
+
+
+def pad_into(dst: np.ndarray, p: np.ndarray) -> None:
+    """Write ``p`` edge-padded to ``dst``'s shape into ``dst`` (what
+    :func:`pad_plane` returns, with no array of its own): columns to the
+    right take the last column, rows below the last row."""
+    h, w = p.shape
+    dst[:h, :w] = p
+    dst[:h, w:] = dst[:h, w - 1:w]
+    dst[h:] = dst[h - 1]
