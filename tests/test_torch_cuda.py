@@ -6,7 +6,9 @@ the one-hot dot probes
 dense product, csrc/probe_dotconst.cu) and the relayout probes (K9, K10,
 csrc/probe_relayout.cu); then the paths that reach K1 from outside the
 CLI: two processes sharing the card over a gloo group, the global mesh,
-and the designer's regrain (and, with matplotlib, its GUI) against the CPU.
+and the designer's regrain (and, with matplotlib, its GUI) against the CPU;
+and ``run_file`` on the card (traced, reusing its slots, at pad-leak
+widths) against the CPU.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one (the kernel has no CPU mode; the CPU tests hold the plain
@@ -880,4 +882,33 @@ def test_run_file_reuses_its_slots_on_card(odepth, cuda_device, tmp_path):
     assert c["batches"] == 32 and c["staging_allocs"] == 2 + 3 * 2 + 2
     GrainPipeline(W, H, 10, 0, device="cpu").run_file(inp, want,
                                                       odepth=odepth, batch=2)
+    assert open(out, "rb").read() == open(want, "rb").read()
+
+
+@pytest.mark.parametrize("width,height,depth,odepth", [(145, 128, 8, 0),
+                                                       (146, 130, 10, 8)])
+def test_run_file_pad_leak_on_card(width, height, depth, odepth, cuda_device,
+                                   tmp_path):
+    """``run_file`` at a pad-leak width on the card (luma 145 % 16 == 1;
+    chroma 73 % 8 == 1): one frame a step whatever the batch, each frame's
+    padding taken from the last step's output on the card, byte-equal to a
+    --device cpu run."""
+    from versatilefilmgrain_tpu_torch import GrainPipeline
+    from versatilefilmgrain_tpu_torch.utils import tracing, yuv
+    nfr = 6
+    rng = np.random.default_rng(width)
+    dt = np.uint8 if depth == 8 else np.uint16
+    inp = tmp_path / "in.yuv"
+    inp.write_bytes(rng.integers(
+        0, 1 << depth, nfr * yuv.frame_bytes(width, height, depth, 0)
+        // dt().itemsize).astype(dt).tobytes())
+    out, want = str(tmp_path / "out.yuv"), str(tmp_path / "cpu.yuv")
+    card = GrainPipeline(width, height, depth, 0)
+    assert card._has_pad_leak()
+    with tracing.forced():
+        assert card.run_file(str(inp), out, odepth=odepth, batch=4) == nfr
+        c = tracing.counters()
+    assert c["batches"] == nfr
+    GrainPipeline(width, height, depth, 0, device="cpu").run_file(
+        str(inp), want, odepth=odepth, batch=4)
     assert open(out, "rb").read() == open(want, "rb").read()

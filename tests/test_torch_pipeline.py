@@ -68,6 +68,41 @@ def test_run_file_matches_jax(w, h, depth, nfr, tmp_path):
     assert outs["torch"] == outs["jax"]
 
 
+def test_process_frame_then_run_share_the_carry(tmp_path):
+    """At a pad-leak width, process_frame for frames 0-2 and then run() on
+    the rest of the file, on one pipeline, against the JAX package doing
+    the same: run() starts from the padding that frame 2 left (it numbers
+    its own frames from 0 again, in both packages).  Gain 400 grows the
+    carried padding fast enough for three frames of it to show."""
+    w, h, depth, gain = 145, 128, 8, 400
+    frames = _frames(w, h, depth, 6, 31)
+    src = tmp_path / "in.yuv"
+    with open(src, "wb") as f:
+        for planes in frames[3:]:
+            for p in planes:
+                f.write(p.tobytes())
+    outs = {}
+    for name, pipe in (
+            ("jax", JaxPipeline(w, h, depth, 0, gain=gain, engine="fast")),
+            ("torch", GrainPipeline(w, h, depth, 0, gain=gain, engine="ref",
+                                    device="cpu")),
+            ("fresh", GrainPipeline(w, h, depth, 0, gain=gain, engine="ref",
+                                    device="cpu"))):
+        got = [] if name == "fresh" else [
+            pipe.process_frame(tuple(p.copy() for p in planes), n)
+            for n, planes in enumerate(frames[:3])]
+        dst = tmp_path / f"out_{name}.yuv"
+        with open(src, "rb") as fs, open(dst, "wb") as fd:
+            assert pipe.run(fs, fd) == 3
+        outs[name] = (got, dst.read_bytes())
+    for n, (a, b) in enumerate(zip(outs["jax"][0], outs["torch"][0])):
+        for c in range(3):
+            assert np.array_equal(a[c], b[c]), f"frame {n} plane {c}"
+    assert outs["torch"][1] == outs["jax"][1]
+    # without the first three frames' padding, run() writes other bytes
+    assert outs["fresh"][1] != outs["torch"][1]
+
+
 def test_run_file_outdepth_and_profile(tmp_path):
     w, h, nfr = 256, 144, 3
     src = tmp_path / "in.yuv"

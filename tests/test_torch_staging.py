@@ -1,11 +1,12 @@
 """``run_file``'s host buffers, made once a call and reused batch after
 batch (a raw ring, two input slots padded in place, two output slots),
-on the CPU: its output bytes against the per-frame ``run()`` and the JAX
-package's ``run_file`` across config switches that cut batches, a short
-last batch, planes padded in both directions, 10-bit input written as 8
-bits, and the native and the Python I/O; the ``staging_allocs`` counter
-against the frame count; the reader's ``next(out=)``; and the in-place
-padding against ``yuv.pad_plane``."""
+on the CPU: its output bytes against ``run()`` (the same loop, one frame
+a step) and the JAX package's ``run_file`` across config switches that
+cut batches, a short last batch, planes padded in both directions, 10-bit
+input written as 8 bits, pad-leak widths, a batch of one, and the native
+and the Python I/O; the ``staging_allocs`` counter against the frame
+count; the reader's ``next(out=)``; and the in-place padding against
+``yuv.pad_plane``."""
 
 import os
 
@@ -31,6 +32,12 @@ CASES = {
     "ten_bits_to_eight": (200, 130, 10, 8, 4, 9, 0, []),
     # 5 of 12 frames asked for, at batch 8: [0, 2) cut, [2, 5)
     "fewer_frames_than_a_batch": (256, 144, 8, 0, 8, 12, 5, [(2, 7)]),
+    # pad-leak widths step one frame at a time, whatever the batch, with
+    # the padding carried on the device: luma 145 % 16 == 1 ...
+    "luma_pad_leak": (145, 128, 8, 0, 4, 6, 0, []),
+    # ... and chroma 73 % 8 == 1 (luma 146 % 16 == 2); 10 bits in, 8 out
+    "chroma_pad_leak": (146, 130, 10, 8, 4, 5, 0, []),
+    "batch_of_one": (256, 144, 8, 0, 1, 5, 0, []),
 }
 
 

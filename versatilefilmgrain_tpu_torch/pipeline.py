@@ -1,6 +1,10 @@
 """Outer layer: validation, chroma-format adjustment, gain, POC-scheduled
 multi-config switching, and the frame loop (reference: src/vfgs_main.c).
 
+One frame loop, ``GrainPipeline._loop``, serves ``run`` (open files) and
+``run_file`` (file paths, batches); ``process_frame`` grains an in-memory
+frame with the loop's staging and its padding carry at pad-leak widths.
+
 The per-frame LFSR bases are derived in closed form from (frame - epoch) where
 ``epoch`` is the frame index of the last reseed (AFGS1 inits reseed,
 vfgs_fw.c:672; SEI inits do not, so grain state carries across SEI config
@@ -167,6 +171,15 @@ def parse_cfg_param(param: str):
     return poc, filename
 
 
+def _open(path: str, mode: str):
+    """``open``, failing with the reference's wording."""
+    try:
+        return open(path, mode)
+    except OSError:
+        what = "open" if "r" in mode else "create"
+        raise OSError(f"Can not {what} file {path}")
+
+
 class GrainPipeline:
     """Holds persistent metadata/register state and processes frames."""
 
@@ -232,7 +245,7 @@ class GrainPipeline:
         self.grain_offset = grain_offset
         self._tables_cache = None  # ((engine, generation), device tables)
         self._cfg_generation = 0
-        self._pbuf = None
+        self._carry = None  # pad-leak widths: the last output (_upload)
         self._R = -(-height // 16)
         self._C = -(-width // 16)
 
@@ -330,8 +343,9 @@ class GrainPipeline:
         width).  The reference then depends on its persistent frame buffer's
         stride padding -- malloc-zeroed at start, accumulating grained values
         across frames (vfgs_hw.c:243-283 writes the full final block;
-        yuv_read only overwrites `width` samples per row) -- so those widths
-        need the stateful padded-buffer path to stay bit-exact."""
+        yuv_read only overwrites `width` samples per row) -- so at those
+        widths a step takes one frame, and its padding from the last
+        step's output (:meth:`_upload`)."""
         if self._C < 2:
             return False
         for subx in (1, self.regs.csubx):
@@ -350,68 +364,58 @@ class GrainPipeline:
                        if e0 > 0 else base)
         return base, base_up
 
-    # ------------------------------------------------------------------
+    # -- staging, shared by process_frame and the frame loop --------------
+
+    def _padded_batch(self, frames: int, pinned: bool) -> list:
+        """Host (Y, U, V) planes of ``frames`` padded frames."""
+        R, C = self._R, self._C
+        bhc, bwc = 16 // self.regs.csuby, 16 // self.regs.csubx
+        shapes = ((R * 16, C * 16), (R * bhc, C * bwc), (R * bhc, C * bwc))
+        dtype = torch.uint8 if self.depth == 8 else torch.uint16
+        return [torch.empty((frames, *s), dtype=dtype, pin_memory=pinned)
+                for s in shapes]
+
+    def _upload(self, host, count: int, dims) -> list:
+        """Start the copy of the first ``count`` frames of the host planes
+        ``host`` to the device (on the CPU, ``.to()`` returns them).  At a
+        pad-leak width (one frame a step) every sample outside each
+        plane's ``dims`` (height, width) is then taken from the carry: the
+        last step's output, zeros before the first frame, as the
+        reference's persistent frame buffer holds them."""
+        dev = [h[:count].to(self.device, non_blocking=True) for h in host]
+        if self._has_pad_leak():
+            if self._carry is None:
+                self._carry = [torch.zeros(d.shape[1:], dtype=d.dtype)
+                               .to(self.device) for d in dev]
+            for d, c, (h, w) in zip(dev, self._carry, dims):
+                d[:, h:] = c[h:]
+                d[:, :h, w:] = c[:h, w:]
+        return dev
+
+    def _grain(self, dev, bases, bases_up, tables):
+        """One step; at a pad-leak width its output becomes the carry."""
+        out = self._step(*dev, bases, bases_up, tables)
+        if self._has_pad_leak():
+            self._carry = [o[-1] for o in out]
+        return out
 
     def process_frame(self, planes, n: int):
-        """Add grain to one (Y, U, V) frame (numpy in/out, same dtype)."""
+        """Add grain to one (Y, U, V) frame (numpy in/out, same dtype), with
+        the frame loop's staging: padded into host planes, uploaded,
+        grained, cropped on the device."""
         self.maybe_switch_config(n)
-        return self._run_engine(planes, n)
-
-    def _run_engine(self, planes, n: int):
-        R, C = self._R, self._C
-        bhc = 16 // self.regs.csuby
-        bwc = 16 // self.regs.csubx
-        y, u, v = planes
-        if self._has_pad_leak():
-            # Stateful padding: replicate the reference's persistent frame
-            # buffer (zeros at start, grained padding carried across frames).
-            if self._pbuf is None:
-                self._pbuf = [
-                    np.zeros((R * 16, C * 16), y.dtype),
-                    np.zeros((R * bhc, C * bwc), u.dtype),
-                    np.zeros((R * bhc, C * bwc), v.dtype)]
-            for buf, p in zip(self._pbuf, (y, u, v)):
-                buf[:p.shape[0], :p.shape[1]] = p
-            padded = self._pbuf
-        else:
-            padded = (yuv.pad_plane(y, R * 16, C * 16),
-                      yuv.pad_plane(u, R * bhc, C * bwc),
-                      yuv.pad_plane(v, R * bhc, C * bwc))
+        host = self._padded_batch(1, pinned=False)
+        for h, p in zip(host, planes):
+            yuv.pad_into(h[0].numpy(), p)
+        dev = self._upload(host, 1, [p.shape for p in planes])
         base, base_up = self.frame_bases(n)
-        dev = [torch.tensor(p)[None].to(self.device) for p in padded]
-        out = [o[0].cpu().numpy()
-               for o in self._step(*dev, [base], [base_up], self._tables())]
-        if self._has_pad_leak():
-            # Carry the grained padding into the next frame's buffer (a
-            # copy: the frames returned below must not alias it).
-            self._pbuf = [o.copy() for o in out]
-        cw, ch = u.shape[1], u.shape[0]
-        return (out[0][:self.height, :self.width],
-                out[1][:ch, :cw], out[2][:ch, :cw])
+        out = self._grain(dev, [base], [base_up], self._tables())
+        # copied on the CPU too, where .cpu() returns the tensor itself: a
+        # returned frame must not alias the carry
+        return tuple(o[0, :p.shape[0], :p.shape[1]].to("cpu", copy=True)
+                     .numpy() for o, p in zip(out, planes))
 
-    # ------------------------------------------------------------------
-
-    def run(self, fsrc, fdst, frames: int = 0, odepth: int = 0) -> int:
-        """Full frame loop (vfgs_main.c:762-796). Returns frames written."""
-        odepth = odepth or self.depth
-        assert odepth in (8, 10) and odepth <= self.depth
-        yuv.skip_frames(fsrc, self.seek, self.width, self.height,
-                        self.depth, self.fmt)
-        n = 0
-        while frames == 0 or n < frames:
-            self.maybe_switch_config(n)
-            planes = yuv.read_frame(fsrc, self.width, self.height,
-                                    self.depth, self.fmt)
-            if planes is None:
-                break
-            out = self._run_engine(planes, n)
-            if odepth < self.depth:
-                out = yuv.to_8bit(out)
-            yuv.write_frame(fdst, out, odepth)
-            n += 1
-        return n
-
-    # -- batched high-throughput file pipeline --------------------------
+    # -- the frame loop ----------------------------------------------------
 
     def _split_frame(self, raw: np.ndarray, depth: int = 0):
         """View a raw frame byte buffer (or an array of them, one a row)
@@ -426,101 +430,131 @@ class GrainPipeline:
                      for a, b, s in zip(ends, ends[1:], shapes))
 
     def _host_buffers(self, slots: int, odepth: int, pinned: bool):
-        """``run_file``'s host buffers, made once a call and counted as
+        """The frame loop's host buffers, made once a call and counted as
         ``staging_allocs``: ``slots`` raw input frames; two input slots,
         each ``slots`` padded (Y, U, V) planes; two output slots, each
         ``slots`` whole output frames of ``odepth`` bits, as a uint8 array
         of (slots, frame bytes).  The slots are pinned where ``pinned``.
         Returns (raws, inputs, outputs)."""
-        R, C = self._R, self._C
-        bhc, bwc = 16 // self.regs.csuby, 16 // self.regs.csubx
-        shapes = ((R * 16, C * 16), (R * bhc, C * bwc), (R * bhc, C * bwc))
-        dtype = torch.uint8 if self.depth == 8 else torch.uint16
         fbytes = yuv.frame_bytes(self.width, self.height, self.depth, self.fmt)
         obytes = yuv.frame_bytes(self.width, self.height, odepth, self.fmt)
         raws = [np.empty(fbytes, np.uint8) for _ in range(slots)]
-        inputs = [[torch.empty((slots, *s), dtype=dtype, pin_memory=pinned)
-                   for s in shapes] for _ in range(2)]
+        inputs = [self._padded_batch(slots, pinned) for _ in range(2)]
         outputs = [torch.empty((slots, obytes), dtype=torch.uint8,
                                pin_memory=pinned) for _ in range(2)]
         tracing.count("staging_allocs", slots + 3 * 2 + 2)
         return raws, inputs, outputs
 
+    def _file_ends(self, fsrc, fdst):
+        """The loop's ``read_raw`` and ``put`` on two open binary files,
+        the ``seek`` frames skipped."""
+        yuv.skip_frames(fsrc, self.seek, self.width, self.height,
+                        self.depth, self.fmt)
+        fbytes = yuv.frame_bytes(self.width, self.height, self.depth, self.fmt)
+        return (lambda buf: buf if fsrc.readinto(buf) == fbytes else None,
+                fdst.write)
+
+    def run(self, fsrc, fdst, frames: int = 0, odepth: int = 0) -> int:
+        """The frame loop (vfgs_main.c:762-796, :meth:`_loop`) over two
+        open binary files, one frame a step.  Returns frames written."""
+        return self._loop(*self._file_ends(fsrc, fdst), frames, odepth,
+                          batch=1)
+
     def run_file(self, src: str, dst: str, frames: int = 0, odepth: int = 0,
                  batch: int = 4, profile_dir: str | None = None,
                  verbose: bool = False) -> int:
-        """Batched frame loop over file paths: prefetching native reader,
-        async writer, one device step per batch.  Bit-identical output to
-        :meth:`run`; batches never straddle a config-switch POC.
-
-        On CUDA, batch N+1 is read and staged in pinned host memory while
-        batch N computes, and batch N's device-to-host copy is waited for
-        only when it is written out, one batch later.  Every host buffer
-        of the loop is made once a call (:meth:`_host_buffers`) and reused
-        batch after batch: the input and output batches alternate between
-        two slots; frames are padded in place into an input slot, and the
-        copy back crops each frame into an output slot laid out as the
-        output file, whose rows the writer takes.  ``profile_dir``
-        writes a torch.profiler trace (``trace.json``) of the loop with the
-        host spans of ``utils/tracing.py`` on a track of their own;
-        ``verbose`` prints the stages' wall-clock to stderr, then each
-        span's count, total and self time and the counters."""
+        """The frame loop (:meth:`_loop`) over file paths, ``batch`` frames
+        a step, through the native prefetching reader and async writer
+        (utils/native_io.py), or the files themselves where the native
+        library cannot be built; the same bytes as :meth:`run`'s.
+        ``profile_dir`` writes a torch.profiler trace (``trace.json``) of
+        the loop with the host spans of ``utils/tracing.py`` on a track of
+        their own; ``verbose`` prints the stages' wall-clock to stderr,
+        then each span's count, total and self time and the counters."""
         from .utils import native_io
-        use_native = native_io.available()
+        if batch > 1 and self._has_pad_leak():
+            print(f"[vfg-torch] note: at width {self.width} a deblock reads "
+                  "one sample past the frame edge, where the reference "
+                  "keeps the last frame's grained padding; frames go one "
+                  "at a time to stay bit-exact", file=sys.stderr)
+        fbytes = yuv.frame_bytes(self.width, self.height, self.depth, self.fmt)
+        obytes = yuv.frame_bytes(self.width, self.height,
+                                 odepth or self.depth, self.fmt)
+        with contextlib.ExitStack() as opened:
+            if native_io.available():
+                reader = opened.enter_context(contextlib.closing(
+                    native_io.FrameReader(src, fbytes, nbuf=max(4, batch),
+                                          seek_frames=self.seek)))
+                writer = opened.enter_context(contextlib.closing(
+                    native_io.FrameWriter(dst, obytes, nbuf=max(4, batch))))
+                # through the instance at every call: the class's methods
+                # may be wrapped while a pipeline is open
+                ends = (lambda buf: reader.next(out=buf),
+                        lambda frame: writer.put(frame))
+            else:
+                ends = self._file_ends(opened.enter_context(_open(src, "rb")),
+                                       opened.enter_context(_open(dst, "wb")))
+            return self._loop(*ends, frames, odepth, batch, profile_dir,
+                              verbose)
 
-        def open_src():
-            try:
-                return open(src, "rb")
-            except OSError:
-                raise OSError(f"Can not open file {src}")
-
-        def open_dst():
-            try:
-                return open(dst, "wb")
-            except OSError:
-                raise OSError(f"Can not create file {dst}")
-
-        if batch <= 1 or self._has_pad_leak():
-            # Pad-leak widths couple consecutive frames through the padding
-            # columns (see _has_pad_leak), so they use the per-frame path.
-            if batch > 1:
-                print(f"[vfg-torch] note: width {self.width} leaves a one-"
-                      "sample deblock read past the frame edge (component "
-                      "width % block width == 1); the reference feeds its "
-                      "persistent buffer padding across frames there, so "
-                      "frames are processed one at a time to stay bit-exact "
-                      "(slower than the batched path)", file=sys.stderr)
-            with open_src() as fs, open_dst() as fd:
-                return self.run(fs, fd, frames=frames, odepth=odepth)
-
+    def _loop(self, read_raw, put, frames: int, odepth: int, batch: int,
+              profile_dir: str | None = None, verbose: bool = False) -> int:
+        """The frame loop of :meth:`run` and :meth:`run_file`: raw frames
+        from ``read_raw(buf)`` (``buf`` filled, or None at the end), grained
+        ``batch`` at a step (one at a pad-leak width), to ``put(frame)``
+        with ``odepth`` bits; ``frames`` of them, or all if 0.  Batches
+        never straddle a config-switch POC.  The root span is ``run_file``
+        whoever calls.  Returns frames written."""
         odepth = odepth or self.depth
         assert odepth in (8, 10) and odepth <= self.depth
-        fbytes = yuv.frame_bytes(self.width, self.height, self.depth, self.fmt)
-        obytes = yuv.frame_bytes(self.width, self.height, odepth, self.fmt)
+        if self._has_pad_leak():
+            batch = 1
+        root = None
+        with tracing.forced(verbose or bool(profile_dir)):
+            prof = contextlib.nullcontext()
+            if profile_dir:
+                from torch.profiler import ProfilerActivity, profile
+                os.makedirs(profile_dir, exist_ok=True)
+                prof = profile(activities=[ProfilerActivity.CPU] + (
+                    [ProfilerActivity.CUDA]
+                    if self.device.type == "cuda" else []))
+            try:
+                with prof, tracing.span("run_file") as root:
+                    counted = tracing.counters()
+                    return self._steps(read_raw, put, frames, odepth, batch)
+            finally:
+                if root is not None and profile_dir:
+                    trace = os.path.join(profile_dir, "trace.json")
+                    prof.export_chrome_trace(trace)
+                    tracing.add_to_chrome_trace(trace, root.spans)
+                if root is not None and verbose:
+                    self._report(root, counted)
+
+    def _steps(self, read_raw, put, frames: int, odepth: int,
+               batch: int) -> int:
+        """The body of :meth:`_loop`.  On CUDA, batch N+1 is read and
+        staged in pinned host memory while batch N computes, and batch N's
+        device-to-host copy is waited for only when it is written out, one
+        batch later.  The host buffers (:meth:`_host_buffers`) are made
+        once a call: input and output batches alternate between two
+        slots; frames are padded in place into an input slot, and the copy
+        back crops each frame into an output slot laid out as the output
+        file, whose rows ``put`` takes."""
         cuda = self.device.type == "cuda"
         slots = min(batch, frames) if frames else batch
-
-        if use_native:
-            reader = native_io.FrameReader(src, fbytes, nbuf=max(4, batch),
-                                           seek_frames=self.seek)
-            writer = native_io.FrameWriter(dst, obytes, nbuf=max(4, batch))
-        else:
-            fsrc = open_src()
-            fdst = open_dst()
-            yuv.skip_frames(fsrc, self.seek, self.width, self.height,
-                            self.depth, self.fmt)
-
-        def read_raw(buf):
-            if use_native:
-                return reader.next(out=buf)
-            return buf if fsrc.readinto(buf) == fbytes else None
-
-        n = 0
-        eof = False
-        pending = None  # (host outputs, slot, count, n0)
+        raws, inputs, outputs = self._host_buffers(slots, odepth, cuda)
+        in_views = [[h.numpy() for h in s] for s in inputs]
+        out_frames = [h.numpy() for h in outputs]
+        # each output slot's frames as (Y, U, V) planes, views of
+        # (slots, h, w)
+        frame_planes = [[torch.from_numpy(p)
+                         for p in self._split_frame(f, odepth)]
+                        for f in out_frames]
+        dims = [p.shape for p in self._split_frame(raws[0])]
         # the H2D and D2H copies last enqueued from and to each slot
         uploaded = [torch.cuda.Event() for _ in range(2)] if cuda else None
         downloaded = [torch.cuda.Event() for _ in range(2)] if cuda else None
+        eof = False
 
         def prepare(n0, slot):
             """Stage the batch starting at global frame ``n0`` in input
@@ -553,7 +587,6 @@ class GrainPipeline:
                 return None
             if cut and not eof:
                 tracing.count("switch_cuts")
-            host = inputs[slot]
             with tracing.span("stage"):
                 if cuda:
                     # the slot's last upload, two batches back, may still
@@ -566,10 +599,9 @@ class GrainPipeline:
             bases, bases_up = zip(*(self.frame_bases(n0 + i)
                                     for i in range(count)))
             with tracing.span("upload"):
-                # on the CPU .to() returns the slot's planes themselves: the
-                # plain engines return new planes, so two slots suffice
-                dev = [h[:count].to(self.device, non_blocking=True)
-                       for h in host]
+                # on the CPU the plain engines return new planes, so two
+                # slots suffice
+                dev = self._upload(inputs[slot], count, dims)
                 if cuda:
                     uploaded[slot].record()
             # resolve the tables NOW: a later prepare() may pop the next
@@ -580,9 +612,9 @@ class GrainPipeline:
             """Enqueue the copy of a batch's cropped output planes into
             output slot ``slot``, frame by frame, each frame's planes back
             to back as the output file holds them (10-bit planes written as
-            8 bits are converted first, as ``yuv.to_8bit`` does).  The slot
-            is free since the flush of the batch that last used it returned
-            (``writer.put`` copies)."""
+            8 bits are rounded first, (x + 2) >> 2, yuv.c:216-258).  The
+            slot is free since the flush of the batch that last used it
+            returned (``put`` copies or writes)."""
             with tracing.span("download"):
                 for o, rows in zip(out, frame_planes[slot]):
                     q = o[:, :rows.shape[1], :rows.shape[2]]
@@ -604,73 +636,38 @@ class GrainPipeline:
                 with tracing.span("assemble"):
                     frame = host[i]
                 with tracing.span("put"):
-                    if use_native:
-                        writer.put(frame)
-                    else:
-                        fdst.write(frame)
+                    put(frame)
 
-        root = None
-        with tracing.forced(verbose or bool(profile_dir)):
-            prof = contextlib.nullcontext()
-            if profile_dir:
-                from torch.profiler import ProfilerActivity, profile
-                os.makedirs(profile_dir, exist_ok=True)
-                prof = profile(activities=[ProfilerActivity.CPU]
-                               + ([ProfilerActivity.CUDA] if cuda else []))
-            try:
-                with prof, tracing.span("run_file") as root:
-                    counted = tracing.counters()
-                    raws, inputs, outputs = self._host_buffers(
-                        slots, odepth, cuda)
-                    in_views = [[h.numpy() for h in s] for s in inputs]
-                    out_frames = [h.numpy() for h in outputs]
-                    # each output slot's frames as (Y, U, V) planes, views
-                    # of (slots, h, w)
-                    frame_planes = [
-                        [torch.from_numpy(p)
-                         for p in self._split_frame(f, odepth)]
-                        for f in out_frames]
-                    slot = 0
-                    cur = prepare(0, slot)
-                    while cur is not None:
-                        dev, bases, bases_up, tables, count = cur
-                        tracing.set_batch(n)
-                        out = self._step(*dev, bases, bases_up, tables)
-                        # Start this batch's copy back now; flush() waits
-                        # for it one batch later, after the next batch has
-                        # been staged.
-                        done = start_download(out, slot)
-                        tracing.count("frames", count)
-                        tracing.count("batches")
-                        n0 = n
-                        n += count
-                        cur = prepare(n, 1 - slot)
-                        if pending is not None:
-                            flush(pending)
-                        pending = (done, slot, count, n0)
-                        slot = 1 - slot
-                    if pending is not None:
-                        flush(pending)
-            finally:
-                if use_native:
-                    reader.close()
-                    writer.close()
-                else:
-                    fsrc.close()
-                    fdst.close()
-                if root is not None and profile_dir:
-                    trace = os.path.join(profile_dir, "trace.json")
-                    prof.export_chrome_trace(trace)
-                    tracing.add_to_chrome_trace(trace, root.spans)
-                if root is not None and verbose:
-                    self._report(n, root, counted)
+        n, slot = 0, 0
+        pending = None  # (host outputs, slot, count, n0)
+        cur = prepare(0, slot)
+        while cur is not None:
+            dev, bases, bases_up, tables, count = cur
+            tracing.set_batch(n)
+            out = self._grain(dev, bases, bases_up, tables)
+            # Start this batch's copy back now; flush() waits for it one
+            # batch later, after the next batch has been staged.
+            done = start_download(out, slot)
+            tracing.count("frames", count)
+            tracing.count("batches")
+            n0 = n
+            n += count
+            cur = prepare(n, 1 - slot)
+            if pending is not None:
+                flush(pending)
+            pending = (done, slot, count, n0)
+            slot = 1 - slot
+        if pending is not None:
+            flush(pending)
         return n
 
-    def _report(self, n: int, root, counted: dict) -> None:
-        """``run_file``'s verbose lines: the frame rate and the stages'
+    def _report(self, root, counted: dict) -> None:
+        """``_loop``'s verbose lines: the frame rate and the stages'
         wall-clock, then each span's count, total and self time, and the
         counters the run added."""
         tot = tracing.summary(root.spans, root.i)
+        now = tracing.counters()
+        n = now.get("frames", 0) - counted.get("frames", 0)
 
         def secs(*names):
             return sum(tot[k][1] for k in names if k in tot)
@@ -685,7 +682,6 @@ class GrainPipeline:
                  f"{'span':<14}{'count':>8}{'total s':>11}{'self s':>11}"]
         lines += [f"{k:<14}{c:>8}{t:>11.3f}{own:>11.3f}"
                   for k, (c, t, own) in tot.items()]
-        now = tracing.counters()
         lines.append("counters: " + ", ".join(
             f"{k} {now.get(k, 0) - counted.get(k, 0)}"
             for k in tracing.COUNTERS))

@@ -59,20 +59,10 @@ def read_frame(f, width: int, height: int, depth: int, fmt: int):
     return tuple(planes)
 
 
-def write_frame(f, planes, depth: int) -> None:
-    dt = np.uint8 if depth == 8 else np.dtype("<u2")
-    for p in planes:
-        f.write(np.ascontiguousarray(p, dtype=dt).tobytes())
-
-
-def to_8bit(planes):
-    """10-bit -> 8-bit with rounding (x+2)>>2 (yuv.c:216-258)."""
-    return tuple(((p.astype(np.uint16) + 2) >> 2).astype(np.uint8)
-                 for p in planes)
-
-
 def pad_plane(p: np.ndarray, ph: int, pw: int) -> np.ndarray:
-    """Edge-pad a plane to (ph, pw); padded samples never reach the output."""
+    """Edge-pad a plane to (ph, pw).  The padded samples never reach the
+    output, except at a pad-leak width (``GrainPipeline._has_pad_leak``),
+    where the pipeline takes the padding from the last frame's output."""
     h, w = p.shape
     if h == ph and w == pw:
         return p
