@@ -7,8 +7,8 @@ dense product, csrc/probe_dotconst.cu) and the relayout probes (K9, K10,
 csrc/probe_relayout.cu); then the paths that reach K1 from outside the
 CLI: two processes sharing the card over a gloo group, the global mesh,
 and the designer's regrain (and, with matplotlib, its GUI) against the CPU;
-and ``run_file`` on the card (traced, reusing its slots, at pad-leak
-widths) against the CPU.
+and ``run_file`` on the card (traced, reusing its buffers, at pad-leak
+widths, pipe to pipe through the native rings) against the CPU.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one (the kernel has no CPU mode; the CPU tests hold the plain
@@ -868,9 +868,10 @@ def test_traced_run_file_spans_stay_off_the_device_timeline(cuda_device,
 @pytest.mark.parametrize("odepth", [0, 8])
 def test_run_file_reuses_its_slots_on_card(odepth, cuda_device, tmp_path):
     """``run_file`` on the card at batch 2 over 64 frames: 32 batches
-    through two pinned input and two pinned output slots, each restaged
-    while the other's copies may be in flight, byte-equal to a --device cpu
-    run (10 bits out, and 8); its host buffers are made once."""
+    through the native reader's and writer's pinned rings, each frame
+    lent to the copies while others' copies may be in flight, byte-equal
+    to a --device cpu run (10 bits out, and 8); its buffers (two host
+    rings, five device buffers) are made once."""
     from versatilefilmgrain_tpu_torch import GrainPipeline
     from versatilefilmgrain_tpu_torch.utils import tracing
     inp = _designer_input(tmp_path, W, H, 64)
@@ -879,7 +880,7 @@ def test_run_file_reuses_its_slots_on_card(odepth, cuda_device, tmp_path):
         assert GrainPipeline(W, H, 10, 0).run_file(inp, out, odepth=odepth,
                                                    batch=2) == 64
         c = tracing.counters()
-    assert c["batches"] == 32 and c["staging_allocs"] == 2 + 3 * 2 + 2
+    assert c["batches"] == 32 and c["staging_allocs"] == 2 + 5
     GrainPipeline(W, H, 10, 0, device="cpu").run_file(inp, want,
                                                       odepth=odepth, batch=2)
     assert open(out, "rb").read() == open(want, "rb").read()
@@ -912,3 +913,54 @@ def test_run_file_pad_leak_on_card(width, height, depth, odepth, cuda_device,
     GrainPipeline(width, height, depth, 0, device="cpu").run_file(
         str(inp), want, odepth=odepth, batch=4)
     assert open(out, "rb").read() == open(want, "rb").read()
+
+
+@pytest.mark.parametrize("depth,odepth", [(8, 0), (10, 8)])
+def test_run_file_pipe_to_pipe_through_pinned_rings_on_card(
+        depth, odepth, cuda_device, tmp_path):
+    """``run_file`` at batch 8 over 72 frames between two FIFOs, through
+    the native reader and writer: every frame goes from the reader's
+    pinned ring to the card and back into the writer's by reference
+    (``ring_frames`` == ``frames``), byte-equal to the plain engine on
+    the CPU (8 bits, and 10 bits written as 8)."""
+    import os
+    import threading
+    from versatilefilmgrain_tpu_torch import GrainPipeline
+    from versatilefilmgrain_tpu_torch.utils import native_io, tracing, yuv
+    if not native_io.available():
+        pytest.skip("native I/O toolchain unavailable")
+    nfr, w, h = 72, 250, 140
+    rng = np.random.default_rng(depth)
+    dt = np.uint8 if depth == 8 else np.uint16
+    data = rng.integers(0, 1 << depth, nfr * yuv.frame_bytes(w, h, depth, 0)
+                        // dt().itemsize).astype(dt).tobytes()
+    inp = tmp_path / "in.yuv"
+    inp.write_bytes(data)
+    src, dst = str(tmp_path / "src.fifo"), str(tmp_path / "dst.fifo")
+    os.mkfifo(src)
+    os.mkfifo(dst)
+    got = []
+
+    def feed():
+        with open(src, "wb") as f:
+            f.write(data)
+
+    def drain():
+        with open(dst, "rb") as f:
+            got.append(f.read())
+    helpers = [threading.Thread(target=t, daemon=True) for t in (feed, drain)]
+    for t in helpers:
+        t.start()
+    try:
+        with tracing.forced():
+            assert GrainPipeline(w, h, depth, 0).run_file(
+                src, dst, odepth=odepth, batch=8) == nfr
+            c = tracing.counters()
+    finally:
+        for t in helpers:
+            t.join(timeout=60)
+    assert c["frames"] == c["ring_frames"] == nfr and c["batches"] == 9
+    want = str(tmp_path / "cpu.yuv")
+    GrainPipeline(w, h, depth, 0, device="cpu", engine="ref").run_file(
+        str(inp), want, odepth=odepth, batch=8)
+    assert got == [open(want, "rb").read()]

@@ -28,7 +28,7 @@ from versatilefilmgrain_tpu_torch.utils import native_io as torch_native_io
 from versatilefilmgrain_tpu_torch.utils import parsers as torch_parsers
 from versatilefilmgrain_tpu_torch.utils import yuv as torch_yuv
 
-from torch_port_cases import REPO
+from torch_port_cases import REPO, luma_only_sei
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
 from gen_input import make_input_yuv  # noqa: E402
@@ -191,10 +191,16 @@ def native():
 
 
 def _read_all(mod, path, fb, **kw):
+    """Every frame, each in a buffer of its own: the JAX package's reader
+    makes one a frame; the port's lends its ring's, copied here and given
+    back."""
     r = mod.FrameReader(path, fb, **kw)
     try:
         got = []
         while (buf := r.next()) is not None:
+            if mod is torch_native_io:
+                buf = buf.copy()
+                r.release(1)
             got.append(buf)
         return got
     finally:
@@ -217,7 +223,9 @@ def test_reader_writer_roundtrip(tmp_path, native):
     dst = str(tmp_path / "b.bin")
     w = tio.FrameWriter(dst, fb, nbuf=3)
     for fr in got:
-        w.put(fr)
+        buf = w.acquire()
+        buf[:] = fr
+        w.put(buf)
     w.close()
     assert open(dst, "rb").read() == open(src, "rb").read()
 
@@ -237,20 +245,6 @@ def test_reader_seek_and_partial(tmp_path, native):
 
 # -- tests/test_pipeline_formats.py ------------------------------------------
 
-def _luma_only_sei(cfgmod):
-    sei = cfgmod.FgsSei()
-    sei.model_id = 0
-    sei.log2_scale_factor = 5
-    sei.comp_model_present_flag = [1, 0, 0]
-    sei.num_intensity_intervals = [4, 0, 0]
-    sei.num_model_values = [3, 0, 0]
-    sei.intensity_interval_lower_bound[0, :4] = [0, 60, 120, 180]
-    sei.intensity_interval_upper_bound[0, :4] = [59, 119, 179, 255]
-    sei.comp_model_value[0, :4, :3] = [[90, 4, 6], [120, 8, 8],
-                                       [140, 11, 9], [160, 14, 14]]
-    return sei
-
-
 @pytest.mark.parametrize("side", ["jax", "torch"])
 def test_default_config_rejects_422(side):
     with pytest.raises(SIDES[side][2].ConfigError):
@@ -266,10 +260,10 @@ def test_run_file_formats(fmt, tmp_path):
     make_input_yuv(inp, w, h, 10, fmt, frames)
     out_b = str(tmp_path / "b.yuv")
     pipe = _pipe("torch", w, h, 10, fmt,
-                 initial_sei=_luma_only_sei(torch_cfgmod))
+                 initial_sei=luma_only_sei(torch_cfgmod))
     assert pipe.run_file(inp, out_b, frames=frames, batch=2) == frames
     pipe2 = _pipe("torch", w, h, 10, fmt,
-                  initial_sei=_luma_only_sei(torch_cfgmod))
+                  initial_sei=luma_only_sei(torch_cfgmod))
     out = b""
     with open(inp, "rb") as f:
         for n in range(frames):
@@ -280,6 +274,6 @@ def test_run_file_formats(fmt, tmp_path):
     assert out == got
     out_j = str(tmp_path / "j.yuv")
     jpipe = _pipe("jax", w, h, 10, fmt,
-                  initial_sei=_luma_only_sei(jax_cfgmod))
+                  initial_sei=luma_only_sei(jax_cfgmod))
     assert jpipe.run_file(inp, out_j, frames=frames, batch=2) == frames
     assert got == open(out_j, "rb").read()

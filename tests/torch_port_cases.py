@@ -212,6 +212,23 @@ def random_planes(seed, depth, R, C, csub, frames=None):
                                (R * (16 // csuby), C * (16 // csubx))))
 
 
+def luma_only_sei(cfgmod):
+    """A luma-only SEI config of the package whose config module is
+    ``cfgmod`` (the default config has chroma grain, which 4:2:2 and
+    4:4:4 refuse)."""
+    sei = cfgmod.FgsSei()
+    sei.model_id = 0
+    sei.log2_scale_factor = 5
+    sei.comp_model_present_flag = [1, 0, 0]
+    sei.num_intensity_intervals = [4, 0, 0]
+    sei.num_model_values = [3, 0, 0]
+    sei.intensity_interval_lower_bound[0, :4] = [0, 60, 120, 180]
+    sei.intensity_interval_upper_bound[0, :4] = [59, 119, 179, 255]
+    sei.comp_model_value[0, :4, :3] = [[90, 4, 6], [120, 8, 8],
+                                       [140, 11, 9], [160, 14, 14]]
+    return sei
+
+
 def edit_design(d):
     """The designer edits both packages are held to: interval 2 of luma
     split at 70 and its upper half toggled off, two scales changed, another

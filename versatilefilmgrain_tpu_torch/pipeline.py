@@ -27,7 +27,7 @@ from .ops import lfsr
 from .ops.grain_natural import (add_grain_batch_natural,
                                 add_grain_batch_plain, natural_tables)
 from .ops.grain_pallas import add_grain_batch_pallas, pallas_tables
-from .utils import parsers, tracing, yuv
+from .utils import native_io, parsers, tracing, yuv
 from .utils.parsers import ConfigError, _check
 
 MAX_CONFIGS = 64
@@ -178,6 +178,47 @@ def _open(path: str, mode: str):
     except OSError:
         what = "open" if "r" in mode else "create"
         raise OSError(f"Can not {what} file {path}")
+
+
+class _FileSource:
+    """The frame loop's source on an open binary file: frames read with
+    ``readinto`` into the host ring ``ring`` in turn and lent as a
+    :class:`native_io.FrameReader` lends them.  A frame is read over
+    again ``len(ring)`` frames later, which the loop holds fewer than, so
+    giving frames back has nothing to do."""
+
+    def __init__(self, f, ring: torch.Tensor):
+        self.f, self.frames, self.n = f, list(ring.numpy()), 0
+
+    def next(self):
+        frame = self.frames[self.n % len(self.frames)]
+        if self.f.readinto(frame) != frame.size:
+            return None
+        self.n += 1
+        return frame
+
+    def release(self, n: int) -> None:
+        pass
+
+
+class _FileSink:
+    """The frame loop's sink on an open binary file: lends the frames of
+    the host ring ``ring`` in turn, as a :class:`native_io.FrameWriter`
+    lends them, and writes each one put at once, so a frame not put is
+    not written and giving it back has nothing to do."""
+
+    def __init__(self, f, ring: torch.Tensor):
+        self.f, self.frames, self.n = f, list(ring.numpy()), 0
+
+    def acquire(self):
+        self.n += 1
+        return self.frames[(self.n - 1) % len(self.frames)]
+
+    def put(self, frame) -> None:
+        self.f.write(frame)
+
+    def give_back(self, frames) -> None:
+        pass
 
 
 class GrainPipeline:
@@ -366,31 +407,48 @@ class GrainPipeline:
 
     # -- staging, shared by process_frame and the frame loop --------------
 
-    def _padded_batch(self, frames: int, pinned: bool) -> list:
-        """Host (Y, U, V) planes of ``frames`` padded frames."""
+    def _padded_batch(self, frames: int) -> list:
+        """Device (Y, U, V) planes of ``frames`` padded frames."""
         R, C = self._R, self._C
         bhc, bwc = 16 // self.regs.csuby, 16 // self.regs.csubx
         shapes = ((R * 16, C * 16), (R * bhc, C * bwc), (R * bhc, C * bwc))
         dtype = torch.uint8 if self.depth == 8 else torch.uint16
-        return [torch.empty((frames, *s), dtype=dtype, pin_memory=pinned)
+        return [torch.empty((frames, *s), dtype=dtype, device=self.device)
                 for s in shapes]
 
-    def _upload(self, host, count: int, dims) -> list:
-        """Start the copy of the first ``count`` frames of the host planes
-        ``host`` to the device (on the CPU, ``.to()`` returns them).  At a
-        pad-leak width (one frame a step) every sample outside each
-        plane's ``dims`` (height, width) is then taken from the carry: the
-        last step's output, zeros before the first frame, as the
-        reference's persistent frame buffer holds them."""
-        dev = [h[:count].to(self.device, non_blocking=True) for h in host]
-        if self._has_pad_leak():
-            if self._carry is None:
-                self._carry = [torch.zeros(d.shape[1:], dtype=d.dtype)
-                               .to(self.device) for d in dev]
-            for d, c, (h, w) in zip(dev, self._carry, dims):
-                d[:, h:] = c[h:]
-                d[:, :h, w:] = c[:h, w:]
-        return dev
+    def _pad(self, planes, padded) -> list:
+        """Write the device planes ``planes`` ((count, h, w) each) into the
+        first ``count`` frames of the padded device planes ``padded`` and
+        fill what lies outside each frame: its edge
+        (:func:`yuv.pad_batch`), or at a pad-leak width (one frame a step)
+        the carry: the last step's output, zeros before the first frame,
+        as the reference's persistent frame buffer holds them.  Returns
+        the filled planes."""
+        leak = self._has_pad_leak()
+        if leak and self._carry is None:
+            self._carry = [torch.zeros(d.shape[1:], dtype=d.dtype,
+                                       device=self.device) for d in padded]
+        out = []
+        for k, (p, d) in enumerate(zip(planes, padded)):
+            count, h, w = p.shape
+            d = d[:count]
+            if not leak:
+                yuv.pad_batch(d, p)
+            else:
+                d[:, :h, :w] = p
+                d[:, h:] = self._carry[k][h:]
+                d[:, :h, w:] = self._carry[k][:h, w:]
+            out.append(d)
+        return out
+
+    def _upload(self, frames, raw, padded) -> list:
+        """Start the copy of the host frames ``frames`` (raw frame bytes)
+        into the first rows of the device bytes ``raw``, then pad them on
+        the device into ``padded`` (:meth:`_pad`).  Returns the planes."""
+        for row, frame in zip(raw, frames):
+            row.copy_(torch.from_numpy(frame), non_blocking=True)
+        return self._pad([p[:len(frames)] for p in self._planes(raw)],
+                         padded)
 
     def _grain(self, dev, bases, bases_up, tables):
         """One step; at a pad-leak width its output becomes the carry."""
@@ -401,13 +459,11 @@ class GrainPipeline:
 
     def process_frame(self, planes, n: int):
         """Add grain to one (Y, U, V) frame (numpy in/out, same dtype), with
-        the frame loop's staging: padded into host planes, uploaded,
-        grained, cropped on the device."""
+        the frame loop's staging: padded on the device, grained, cropped
+        on the device."""
         self.maybe_switch_config(n)
-        host = self._padded_batch(1, pinned=False)
-        for h, p in zip(host, planes):
-            yuv.pad_into(h[0].numpy(), p)
-        dev = self._upload(host, 1, [p.shape for p in planes])
+        dev = self._pad([torch.tensor(p)[None].to(self.device)
+                         for p in planes], self._padded_batch(1))
         base, base_up = self.frame_bases(n)
         out = self._grain(dev, [base], [base_up], self._tables())
         # copied on the CPU too, where .cpu() returns the tensor itself: a
@@ -417,93 +473,95 @@ class GrainPipeline:
 
     # -- the frame loop ----------------------------------------------------
 
-    def _split_frame(self, raw: np.ndarray, depth: int = 0):
-        """View a raw frame byte buffer (or an array of them, one a row)
-        as (Y, U, V) planes of ``depth`` bits (the input's unless given)."""
+    def _planes(self, raw: torch.Tensor, depth: int = 0):
+        """View frame bytes ``raw`` (uint8, frames one a row) as (Y, U, V)
+        planes of ``depth`` bits (the input's unless given), each
+        (frames, h, w)."""
         w, h = self.width, self.height
         cw, ch = yuv.chroma_dims(w, h, self.fmt)
-        dt = np.uint8 if (depth or self.depth) == 8 else np.dtype("<u2")
-        arr = raw.view(dt)
-        shapes = ((h, w), (ch, cw), (ch, cw))
-        ends = np.cumsum([0] + [a * b for a, b in shapes])
-        return tuple(arr[..., a:b].reshape(*arr.shape[:-1], *s)
-                     for a, b, s in zip(ends, ends[1:], shapes))
+        arr = raw if (depth or self.depth) == 8 else raw.view(torch.uint16)
+        out, a = [], 0
+        for s in ((h, w), (ch, cw), (ch, cw)):
+            out.append(arr[:, a:a + s[0] * s[1]].unflatten(1, s))
+            a += s[0] * s[1]
+        return out
 
-    def _host_buffers(self, slots: int, odepth: int, pinned: bool):
-        """The frame loop's host buffers, made once a call and counted as
-        ``staging_allocs``: ``slots`` raw input frames; two input slots,
-        each ``slots`` padded (Y, U, V) planes; two output slots, each
-        ``slots`` whole output frames of ``odepth`` bits, as a uint8 array
-        of (slots, frame bytes).  The slots are pinned where ``pinned``.
-        Returns (raws, inputs, outputs)."""
-        fbytes = yuv.frame_bytes(self.width, self.height, self.depth, self.fmt)
-        obytes = yuv.frame_bytes(self.width, self.height, odepth, self.fmt)
-        raws = [np.empty(fbytes, np.uint8) for _ in range(slots)]
-        inputs = [self._padded_batch(slots, pinned) for _ in range(2)]
-        outputs = [torch.empty((slots, obytes), dtype=torch.uint8,
-                               pin_memory=pinned) for _ in range(2)]
-        tracing.count("staging_allocs", slots + 3 * 2 + 2)
-        return raws, inputs, outputs
+    def _frame_bytes(self, depth: int = 0) -> int:
+        """Bytes of a frame at ``depth`` bits (the input's unless given)."""
+        return yuv.frame_bytes(self.width, self.height, depth or self.depth,
+                               self.fmt)
 
-    def _file_ends(self, fsrc, fdst):
-        """The loop's ``read_raw`` and ``put`` on two open binary files,
-        the ``seek`` frames skipped."""
+    def _ring_frames(self, batch: int, frames: int) -> int:
+        """Host frames in each ring of the loop at ``batch``: the reader's
+        holds the batch in flight to the device, the one before it until
+        its copies are done, and the next as it is read; the writer's the
+        batch coming back, the one before it until it is put, and one
+        batch of slack for its thread.  Never more than the frames asked
+        for."""
+        n = 3 * (1 if self._has_pad_leak() else batch)
+        return min(n, frames) if frames else n
+
+    def _file_ends(self, fsrc, fdst, batch: int, frames: int, odepth: int):
+        """The loop's frame source and sink on two open binary files, the
+        ``seek`` frames skipped, each with a host ring of its own."""
         yuv.skip_frames(fsrc, self.seek, self.width, self.height,
                         self.depth, self.fmt)
-        fbytes = yuv.frame_bytes(self.width, self.height, self.depth, self.fmt)
-        return (lambda buf: buf if fsrc.readinto(buf) == fbytes else None,
-                fdst.write)
+        nbuf = self._ring_frames(batch, frames)
+        pinned = self.device.type == "cuda"
+        return (_FileSource(fsrc, native_io.host_ring(
+                    nbuf, self._frame_bytes(), pinned)),
+                _FileSink(fdst, native_io.host_ring(
+                    nbuf, self._frame_bytes(odepth), pinned)))
 
     def run(self, fsrc, fdst, frames: int = 0, odepth: int = 0) -> int:
         """The frame loop (vfgs_main.c:762-796, :meth:`_loop`) over two
         open binary files, one frame a step.  Returns frames written."""
-        return self._loop(*self._file_ends(fsrc, fdst), frames, odepth,
-                          batch=1)
+        return self._loop(
+            lambda opened: self._file_ends(fsrc, fdst, 1, frames, odepth),
+            frames, odepth, batch=1)
 
     def run_file(self, src: str, dst: str, frames: int = 0, odepth: int = 0,
                  batch: int = 4, profile_dir: str | None = None,
                  verbose: bool = False) -> int:
         """The frame loop (:meth:`_loop`) over file paths, ``batch`` frames
         a step, through the native prefetching reader and async writer
-        (utils/native_io.py), or the files themselves where the native
-        library cannot be built; the same bytes as :meth:`run`'s.
+        (utils/native_io.py), whose rings the copies to and from the device
+        use directly, or the files themselves where the native library
+        cannot be built; the same bytes as :meth:`run`'s.
         ``profile_dir`` writes a torch.profiler trace (``trace.json``) of
         the loop with the host spans of ``utils/tracing.py`` on a track of
         their own; ``verbose`` prints the stages' wall-clock to stderr,
         then each span's count, total and self time and the counters."""
-        from .utils import native_io
         if batch > 1 and self._has_pad_leak():
             print(f"[vfg-torch] note: at width {self.width} a deblock reads "
                   "one sample past the frame edge, where the reference "
                   "keeps the last frame's grained padding; frames go one "
                   "at a time to stay bit-exact", file=sys.stderr)
-        fbytes = yuv.frame_bytes(self.width, self.height, self.depth, self.fmt)
-        obytes = yuv.frame_bytes(self.width, self.height,
-                                 odepth or self.depth, self.fmt)
-        with contextlib.ExitStack() as opened:
-            if native_io.available():
-                reader = opened.enter_context(contextlib.closing(
-                    native_io.FrameReader(src, fbytes, nbuf=max(4, batch),
-                                          seek_frames=self.seek)))
-                writer = opened.enter_context(contextlib.closing(
-                    native_io.FrameWriter(dst, obytes, nbuf=max(4, batch))))
-                # through the instance at every call: the class's methods
-                # may be wrapped while a pipeline is open
-                ends = (lambda buf: reader.next(out=buf),
-                        lambda frame: writer.put(frame))
-            else:
-                ends = self._file_ends(opened.enter_context(_open(src, "rb")),
-                                       opened.enter_context(_open(dst, "wb")))
-            return self._loop(*ends, frames, odepth, batch, profile_dir,
-                              verbose)
 
-    def _loop(self, read_raw, put, frames: int, odepth: int, batch: int,
+        def open_ends(opened):
+            if not native_io.available():
+                return self._file_ends(
+                    opened.enter_context(_open(src, "rb")),
+                    opened.enter_context(_open(dst, "wb")),
+                    batch, frames, odepth)
+            nbuf = self._ring_frames(batch, frames)
+            pinned = self.device.type == "cuda"
+            return [opened.enter_context(contextlib.closing(end)) for end in (
+                native_io.FrameReader(src, self._frame_bytes(), nbuf=nbuf,
+                                      seek_frames=self.seek, pinned=pinned),
+                native_io.FrameWriter(dst, self._frame_bytes(odepth),
+                                      nbuf=nbuf, pinned=pinned))]
+        return self._loop(open_ends, frames, odepth, batch, profile_dir,
+                          verbose)
+
+    def _loop(self, open_ends, frames: int, odepth: int, batch: int,
               profile_dir: str | None = None, verbose: bool = False) -> int:
         """The frame loop of :meth:`run` and :meth:`run_file`: raw frames
-        from ``read_raw(buf)`` (``buf`` filled, or None at the end), grained
-        ``batch`` at a step (one at a pad-leak width), to ``put(frame)``
-        with ``odepth`` bits; ``frames`` of them, or all if 0.  Batches
-        never straddle a config-switch POC.  The root span is ``run_file``
+        from a source, grained ``batch`` at a step (one at a pad-leak
+        width), to a sink with ``odepth`` bits; ``frames`` of them, or all
+        if 0.  ``open_ends(opened)`` makes the source and the sink, closed
+        by the ExitStack ``opened`` as the loop ends.  Batches never
+        straddle a config-switch POC.  The root span is ``run_file``
         whoever calls.  Returns frames written."""
         odepth = odepth or self.depth
         assert odepth in (8, 10) and odepth <= self.depth
@@ -521,7 +579,9 @@ class GrainPipeline:
             try:
                 with prof, tracing.span("run_file") as root:
                     counted = tracing.counters()
-                    return self._steps(read_raw, put, frames, odepth, batch)
+                    with contextlib.ExitStack() as opened:
+                        return self._steps(*open_ends(opened), frames,
+                                           odepth, batch)
             finally:
                 if root is not None and profile_dir:
                     trace = os.path.join(profile_dir, "trace.json")
@@ -530,37 +590,42 @@ class GrainPipeline:
                 if root is not None and verbose:
                     self._report(root, counted)
 
-    def _steps(self, read_raw, put, frames: int, odepth: int,
+    def _steps(self, src, dst, frames: int, odepth: int,
                batch: int) -> int:
-        """The body of :meth:`_loop`.  On CUDA, batch N+1 is read and
-        staged in pinned host memory while batch N computes, and batch N's
-        device-to-host copy is waited for only when it is written out, one
-        batch later.  The host buffers (:meth:`_host_buffers`) are made
-        once a call: input and output batches alternate between two
-        slots; frames are padded in place into an input slot, and the copy
-        back crops each frame into an output slot laid out as the output
-        file, whose rows ``put`` takes."""
+        """The body of :meth:`_loop`.  Frames stay in the ends' host rings:
+        ``src.next()`` lends the next input frame until ``src.release``
+        gives it back, ``dst.acquire()`` a frame to fill, which
+        ``dst.put`` writes (``dst.give_back`` returns one not put); the
+        copies to and from the device use them
+        directly, and this thread copies no frame bytes on the host.  On
+        CUDA, batch N+1 is read and uploaded while batch N computes, and
+        batch N's device-to-host copy is waited for only when it is put,
+        one batch later.  The device buffers are made once a call and
+        serve every batch (the copies and steps that use them queue in
+        order on one stream): raw input frame bytes, padded planes, and
+        output frame bytes laid out as the output file."""
         cuda = self.device.type == "cuda"
         slots = min(batch, frames) if frames else batch
-        raws, inputs, outputs = self._host_buffers(slots, odepth, cuda)
-        in_views = [[h.numpy() for h in s] for s in inputs]
-        out_frames = [h.numpy() for h in outputs]
-        # each output slot's frames as (Y, U, V) planes, views of
-        # (slots, h, w)
-        frame_planes = [[torch.from_numpy(p)
-                         for p in self._split_frame(f, odepth)]
-                        for f in out_frames]
-        dims = [p.shape for p in self._split_frame(raws[0])]
-        # the H2D and D2H copies last enqueued from and to each slot
+        raw = torch.empty((slots, self._frame_bytes()), dtype=torch.uint8,
+                          device=self.device)
+        padded = self._padded_batch(slots)
+        cropped = torch.empty((slots, self._frame_bytes(odepth)),
+                              dtype=torch.uint8, device=self.device)
+        tracing.count("staging_allocs", 5)
+        out_planes = self._planes(cropped, odepth)
+        # the H2D copies from and the D2H copies to the ring frames of the
+        # batches that last used each of two slots, and how many input
+        # frames those batches hold
         uploaded = [torch.cuda.Event() for _ in range(2)] if cuda else None
         downloaded = [torch.cuda.Event() for _ in range(2)] if cuda else None
+        held = [0, 0]
         eof = False
 
         def prepare(n0, slot):
-            """Stage the batch starting at global frame ``n0`` in input
-            slot ``slot``: pop any due config, read the raw frames into the
-            raw ring, pad them into the slot's (pinned) planes, START their
-            copy to the device, and resolve the tables of the (possibly
+            """Stage the batch starting at global frame ``n0``: pop any due
+            config, take its frames from the source's ring, give back
+            those of the batch two back, START their copy to the device
+            and pad them there, and resolve the tables of the (possibly
             new) config.  Called for batch N+1 right after batch N's step
             is enqueued, so the host work overlaps the compute."""
             nonlocal eof
@@ -576,13 +641,15 @@ class GrainPipeline:
                 limit, cut = min(limit, due), due < limit
             if frames and frames - n0 <= limit:
                 limit, cut = frames - n0, False
-            count = 0
+            taken = []
             with tracing.span("read"):
-                while count < limit:
-                    if read_raw(raws[count]) is None:
+                while len(taken) < limit:
+                    frame = src.next()
+                    if frame is None:
                         eof = True
                         break
-                    count += 1
+                    taken.append(frame)
+            count = len(taken)
             if not count:
                 return None
             if cut and not eof:
@@ -590,56 +657,57 @@ class GrainPipeline:
             with tracing.span("stage"):
                 if cuda:
                     # the slot's last upload, two batches back, may still
-                    # be reading it
+                    # be reading its ring frames
                     uploaded[slot].synchronize()
-                for i in range(count):
-                    for view, plane in zip(in_views[slot],
-                                           self._split_frame(raws[i])):
-                        yuv.pad_into(view[i], plane)
+                src.release(held[slot])
+                held[slot] = count
             bases, bases_up = zip(*(self.frame_bases(n0 + i)
                                     for i in range(count)))
             with tracing.span("upload"):
-                # on the CPU the plain engines return new planes, so two
-                # slots suffice
-                dev = self._upload(inputs[slot], count, dims)
+                dev = self._upload(taken, raw, padded)
                 if cuda:
                     uploaded[slot].record()
             # resolve the tables NOW: a later prepare() may pop the next
             # config before this batch runs
             return dev, bases, bases_up, self._tables(), count
 
-        def start_download(out, slot):
-            """Enqueue the copy of a batch's cropped output planes into
-            output slot ``slot``, frame by frame, each frame's planes back
-            to back as the output file holds them (10-bit planes written as
-            8 bits are rounded first, (x + 2) >> 2, yuv.c:216-258).  The
-            slot is free since the flush of the batch that last used it
-            returned (``put`` copies or writes)."""
+        def start_download(out, count, slot):
+            """Crop a batch's output planes on the device into ``cropped``,
+            frame by frame as the output file holds them (10-bit planes
+            written as 8 bits are rounded first, (x + 2) >> 2,
+            yuv.c:216-258), and enqueue each frame's copy into a frame of
+            the sink's ring, waiting while its thread has none free.
+            Returns those frames."""
             with tracing.span("download"):
-                for o, rows in zip(out, frame_planes[slot]):
+                taken = [dst.acquire() for _ in range(count)]
+                for o, rows in zip(out, out_planes):
                     q = o[:, :rows.shape[1], :rows.shape[2]]
                     if odepth < self.depth:
                         q = ((q.to(torch.int32) + 2) >> 2).to(torch.uint8)
-                    for i in range(len(o)):
-                        rows[i].copy_(q[i], non_blocking=True)
+                    rows[:count].copy_(q)
+                for row, frame in zip(cropped, taken):
+                    torch.from_numpy(frame).copy_(row, non_blocking=True)
                 if cuda:
                     downloaded[slot].record()
-                return out_frames[slot]
+            return taken
 
         def flush(p):
-            host, slot, count, n0 = p
+            taken, slot, n0 = p
             tracing.set_batch(n0)
             with tracing.span("wait"):
                 if cuda:
                     downloaded[slot].synchronize()
-            for i in range(count):
+            for i in range(len(taken)):
                 with tracing.span("assemble"):
-                    frame = host[i]
+                    frame = taken[i]
                 with tracing.span("put"):
-                    put(frame)
+                    dst.put(frame)
+            # a frame that no put took goes back unwritten, so that the
+            # sink's thread never waits on it
+            dst.give_back(taken)
 
         n, slot = 0, 0
-        pending = None  # (host outputs, slot, count, n0)
+        pending = None  # (sink frames, slot, n0)
         cur = prepare(0, slot)
         while cur is not None:
             dev, bases, bases_up, tables, count = cur
@@ -647,7 +715,7 @@ class GrainPipeline:
             out = self._grain(dev, bases, bases_up, tables)
             # Start this batch's copy back now; flush() waits for it one
             # batch later, after the next batch has been staged.
-            done = start_download(out, slot)
+            done = start_download(out, count, slot)
             tracing.count("frames", count)
             tracing.count("batches")
             n0 = n
@@ -655,7 +723,7 @@ class GrainPipeline:
             cur = prepare(n, 1 - slot)
             if pending is not None:
                 flush(pending)
-            pending = (done, slot, count, n0)
+            pending = (done, slot, n0)
             slot = 1 - slot
         if pending is not None:
             flush(pending)

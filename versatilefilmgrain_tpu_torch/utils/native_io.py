@@ -1,8 +1,14 @@
-"""ctypes bindings for the native pipelined frame I/O library (native/vfgsio.c).
+"""ctypes bindings for the frame loop's pipelined frame I/O library
+(csrc/vfgsio_ring.c).
 
-Builds the shared library on first use (gcc, cached under build/); every
-entry point degrades gracefully to the numpy/stdio path in utils/yuv.py when
-the toolchain or library is unavailable, so correctness never depends on it.
+Builds the shared library on first use (gcc, cached under build/).  A
+:class:`FrameReader` and a :class:`FrameWriter` own their ring of host
+frames (:func:`host_ring`, pinned for a CUDA device), which the library's
+threads read into and write from, and lend its frames by reference, so
+that the frame loop's copies to and from the device use them directly.
+Where the toolchain or library is unavailable the frame loop reads and
+writes the files itself (``pipeline.py``), so correctness never depends on
+it.
 """
 
 from __future__ import annotations
@@ -13,6 +19,9 @@ import subprocess
 import threading
 
 import numpy as np
+import torch
+
+from . import tracing
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -22,18 +31,19 @@ _lib_failed = False
 _build_lock = threading.Lock()
 
 
-def build_native(name: str):
-    """Compile native/<name>.c to build/lib<name>_torch.so (cached) and load it.
+def build_native(name: str, src: str | None = None):
+    """Compile ``src`` (default native/<name>.c) to build/lib<name>_torch.so
+    (cached) and load it.
 
     Returns the CDLL or None if the toolchain/compile is unavailable.
     Staleness uses <= so equal mtimes (fresh checkouts) trigger a rebuild;
     compiles to a temp name then renames so concurrent callers never load a
     partially written library.  The ``_torch`` suffix keeps this package's
-    build apart from the JAX package's, which compiles the same sources to
-    build/lib<name>.so, so parallel test workers of the two packages never
-    rebuild one file.
+    build apart from the JAX package's, which compiles the sources under
+    native/ to build/lib<name>.so, so parallel test workers of the two
+    packages never rebuild one file.
     """
-    src = os.path.join(_REPO, "native", f"{name}.c")
+    src = src or os.path.join(_REPO, "native", f"{name}.c")
     so = os.path.join(_REPO, "build", f"lib{name}_torch.so")
     try:
         with _build_lock:
@@ -57,23 +67,25 @@ def _load():
         if _lib is not None or _lib_failed:
             return _lib
         try:
-            lib = build_native("vfgsio")
+            lib = build_native("vfgsio_ring", os.path.join(
+                os.path.dirname(os.path.dirname(__file__)), "csrc",
+                "vfgsio_ring.c"))
             if lib is None:
                 _lib_failed = True
                 return None
-            lib.vfgsio_reader_open.restype = ctypes.c_void_p
-            lib.vfgsio_reader_open.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
-                                               ctypes.c_int, ctypes.c_long]
-            lib.vfgsio_reader_next.restype = ctypes.c_int
-            lib.vfgsio_reader_next.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-            lib.vfgsio_reader_close.argtypes = [ctypes.c_void_p]
-            lib.vfgsio_writer_open.restype = ctypes.c_void_p
-            lib.vfgsio_writer_open.argtypes = [ctypes.c_char_p, ctypes.c_size_t,
-                                               ctypes.c_int]
-            lib.vfgsio_writer_put.restype = ctypes.c_int
-            lib.vfgsio_writer_put.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                              ctypes.c_size_t]
-            lib.vfgsio_writer_close.argtypes = [ctypes.c_void_p]
+            P, I, S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+            for name, res, args in (
+                    ("reader_open", P,
+                     [ctypes.c_char_p, S, I, ctypes.c_long, P]),
+                    ("reader_acquire", I, [P]),
+                    ("reader_release", None, [P, I]),
+                    ("reader_close", None, [P]),
+                    ("writer_open", P, [ctypes.c_char_p, S, I, P]),
+                    ("writer_acquire", I, [P]),
+                    ("writer_commit", I, [P, I, S]),
+                    ("writer_close", None, [P])):
+                fn = getattr(lib, f"vfgsio_ring_{name}")
+                fn.restype, fn.argtypes = res, args
             _lib = lib
         except Exception:
             _lib_failed = True
@@ -84,73 +96,147 @@ def available() -> bool:
     return _load() is not None
 
 
-class FrameReader:
-    """Prefetching whole-frame reader; yields numpy uint8 frame buffers."""
+def host_ring(nbuf: int, frame_bytes: int, pinned: bool) -> torch.Tensor:
+    """``nbuf`` host frames of ``frame_bytes``, one a row, pinned where
+    ``pinned``; counted as ``staging_allocs``."""
+    tracing.count("staging_allocs")
+    return torch.empty((nbuf, frame_bytes), dtype=torch.uint8,
+                       pin_memory=pinned)
 
-    def __init__(self, path: str, frame_bytes: int, nbuf: int = 4,
-                 seek_frames: int = 0):
+
+class _Ring:
+    """What the reader and the writer share: the library, the ring of
+    ``nbuf`` frames (:func:`host_ring`), each frame's numpy view, and the
+    handle, which lives until :meth:`close`."""
+
+    def __init__(self, frame_bytes: int, nbuf: int, pinned: bool):
         lib = _load()
         if lib is None:
             raise RuntimeError("native I/O unavailable")
         self._lib = lib
         self.frame_bytes = frame_bytes
-        self._h = lib.vfgsio_reader_open(path.encode(), frame_bytes, nbuf,
-                                         seek_frames)
+        self._h = None
+        # the C thread reads into or writes from the ring until close()
+        self._ring = host_ring(nbuf, frame_bytes, pinned)
+        self._frames = list(self._ring.numpy())
+
+    def _call(self, name: str, *args):
+        return getattr(self._lib, f"vfgsio_ring_{self._kind}_{name}")(
+            self._h, *args)
+
+    def close(self):
+        if self._h:
+            self._call("close")
+            self._h = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass
+
+
+class FrameReader(_Ring):
+    """Prefetching whole-frame reader: a C thread reads the file ahead into
+    a ring of ``nbuf`` frames (pinned where ``pinned``), which
+    :meth:`next` lends in order."""
+
+    _kind = "reader"
+
+    def __init__(self, path: str, frame_bytes: int, nbuf: int = 4,
+                 seek_frames: int = 0, pinned: bool = False):
+        super().__init__(frame_bytes, nbuf, pinned)
+        self._held = 0
+        self._h = self._lib.vfgsio_ring_reader_open(
+            path.encode(), frame_bytes, nbuf, seek_frames,
+            self._ring.data_ptr())
         if not self._h:
             raise OSError(f"Can not open file {path}")
 
-    def next(self, out: np.ndarray | None = None) -> np.ndarray | None:
-        """The next frame, read into ``out`` (a writable contiguous uint8
-        buffer of ``frame_bytes``) or into a new buffer; None at the end."""
-        if out is None:
-            out = np.empty(self.frame_bytes, dtype=np.uint8)
-        elif (out.dtype != np.uint8 or out.size != self.frame_bytes
-              or not out.flags.c_contiguous or not out.flags.writeable):
-            raise ValueError(f"out must be a writable contiguous uint8 "
-                             f"buffer of {self.frame_bytes} bytes, got "
-                             f"{out.dtype} of {out.size}")
-        ok = self._lib.vfgsio_reader_next(
-            self._h, out.ctypes.data_as(ctypes.c_void_p))
-        return out if ok else None
+    def next(self) -> np.ndarray | None:
+        """The next frame, or None at the end of the stream: the ring's
+        frame itself (a uint8 view of ``frame_bytes``), valid until
+        :meth:`release` gives it back."""
+        slot = self._call("acquire")
+        if slot == -2:
+            raise RuntimeError(f"all {len(self._frames)} ring frames are "
+                               "held: release some first")
+        if slot < 0:
+            return None
+        self._held += 1
+        return self._frames[slot]
 
-    def close(self):
-        if self._h:
-            self._lib.vfgsio_reader_close(self._h)
-            self._h = None
-
-    def __del__(self):
-        try:
-            self.close()
-        except Exception:
-            pass
+    def release(self, n: int = 1) -> None:
+        """Give the ``n`` oldest frames that :meth:`next` lent back to the
+        reader thread."""
+        if not 0 <= n <= self._held:
+            raise ValueError(f"{n} frames to give back, {self._held} held")
+        if n:
+            self._call("release", n)
+            self._held -= n
 
 
-class FrameWriter:
-    """Async frame writer with a background drain thread."""
+class FrameWriter(_Ring):
+    """Async frame writer: a C thread writes out the frames of a ring of
+    ``nbuf`` frames (pinned where ``pinned``) that :meth:`acquire` lent and
+    :meth:`put` handed back, in the order they were lent."""
 
-    def __init__(self, path: str, frame_bytes: int, nbuf: int = 4):
-        lib = _load()
-        if lib is None:
-            raise RuntimeError("native I/O unavailable")
-        self._lib = lib
-        self._h = lib.vfgsio_writer_open(path.encode(), frame_bytes, nbuf)
+    _kind = "writer"
+
+    def __init__(self, path: str, frame_bytes: int, nbuf: int = 4,
+                 pinned: bool = False):
+        super().__init__(frame_bytes, nbuf, pinned)
+        self._held = set()      # the slots lent and not yet put
+        self._base = self._ring.data_ptr()
+        self._h = self._lib.vfgsio_ring_writer_open(
+            path.encode(), frame_bytes, nbuf, self._base)
         if not self._h:
             raise OSError(f"Can not create file {path}")
 
-    def put(self, frame: np.ndarray) -> None:
-        frame = np.ascontiguousarray(frame).view(np.uint8).reshape(-1)
-        ok = self._lib.vfgsio_writer_put(
-            self._h, frame.ctypes.data_as(ctypes.c_void_p), frame.nbytes)
-        if not ok:
+    def acquire(self) -> np.ndarray:
+        """A free frame of the ring (a uint8 view of ``frame_bytes``) to
+        fill and :meth:`put`; waits while the writer thread has none."""
+        slot = self._call("acquire")
+        if slot < 0:
+            raise RuntimeError("the ring's oldest frame is still held: put "
+                               "it or give it back first")
+        self._held.add(slot)
+        return self._frames[slot]
+
+    def _slot(self, frame) -> int | None:
+        """The held slot that ``frame`` is, whole, or None."""
+        if (not isinstance(frame, np.ndarray)
+                or frame.nbytes != self.frame_bytes
+                or not frame.flags.c_contiguous):
+            return None
+        off = frame.__array_interface__["data"][0] - self._base
+        slot, rem = divmod(off, self.frame_bytes)
+        return slot if not rem and slot in self._held else None
+
+    def _commit(self, slot: int, nbytes: int) -> None:
+        self._held.remove(slot)
+        if not self._call("commit", slot, nbytes):
             raise OSError("write error")
 
-    def close(self):
-        if self._h:
-            self._lib.vfgsio_writer_close(self._h)
-            self._h = None
+    def put(self, frame: np.ndarray) -> None:
+        """Write ``frame``, a frame that :meth:`acquire` lent, by reference
+        (counted as ``ring_frames``); anything else is an error."""
+        slot = self._slot(frame)
+        if slot is None:
+            raise ValueError("put takes a frame that acquire() lent and "
+                             "that was not put")
+        self._commit(slot, self.frame_bytes)
+        tracing.count("ring_frames")
 
-    def __del__(self):
-        try:
-            self.close()
-        except Exception:
-            pass
+    def give_back(self, frames) -> None:
+        """Give back, unwritten, each of ``frames`` that :meth:`acquire`
+        lent and that was not put."""
+        for frame in frames:
+            slot = self._slot(frame)
+            if slot is not None:
+                self._commit(slot, 0)
+
+    def close(self):
+        """Write what was put, give back what is held, and close."""
+        super().close()
+        self._held.clear()

@@ -27,13 +27,15 @@ import time
 from torch.autograd import profiler as _profiler
 
 NULL = contextlib.nullcontext()
-# The counters: frames and batches through run_file's batched loop, the
-# batches it cut short at a config switch, config pops that succeeded,
-# device tables built, LFSR jump tables built (one per bit of the exponent,
-# ops/lfsr.py), host frame and batch buffers run_file allocated (once a
-# call, whatever the number of frames).
+# The counters: frames and batches through the frame loop, the batches it
+# cut short at a config switch, config pops that succeeded, device tables
+# built, LFSR jump tables built (one per bit of the exponent,
+# ops/lfsr.py), the loop's staging buffers (its two host rings and its
+# device buffers, made once a call whatever the number of frames), and the
+# frames that left through the native writer's ring by reference, having
+# come in through the native reader's.
 COUNTERS = ("frames", "batches", "switch_cuts", "config_pops",
-            "table_uploads", "lfsr_tables", "staging_allocs")
+            "table_uploads", "lfsr_tables", "staging_allocs", "ring_frames")
 
 
 class _Thread(threading.local):

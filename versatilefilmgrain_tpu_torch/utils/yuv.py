@@ -2,7 +2,8 @@
 
 The reference allocates stride-aligned frames and reads/writes row-wise
 (yuv.c:54-214); file bytes are plain contiguous W*H planes, so we read
-straight into contiguous numpy arrays and let the engine do its own padding.
+straight into contiguous numpy arrays and let the engine do its own padding
+(:func:`pad_batch` on the device; :func:`pad_plane` is its numpy oracle).
 10-bit samples are uint16 little-endian.
 """
 
@@ -69,11 +70,14 @@ def pad_plane(p: np.ndarray, ph: int, pw: int) -> np.ndarray:
     return np.pad(p, ((0, ph - h), (0, pw - w)), mode="edge")
 
 
-def pad_into(dst: np.ndarray, p: np.ndarray) -> None:
-    """Write ``p`` edge-padded to ``dst``'s shape into ``dst`` (what
-    :func:`pad_plane` returns, with no array of its own): columns to the
-    right take the last column, rows below the last row."""
-    h, w = p.shape
-    dst[:h, :w] = p
-    dst[:h, w:] = dst[:h, w - 1:w]
-    dst[h:] = dst[h - 1]
+def pad_batch(dst, p) -> None:
+    """Write the planes ``p`` (frames, h, w) edge-padded to ``dst``'s
+    shape (frames, ph, pw) into ``dst``, torch tensors on any one device
+    (what :func:`pad_plane` returns for each frame): columns to the right
+    take the last column, rows below the last row."""
+    h, w = p.shape[1:]
+    dst[:, :h, :w] = p
+    if w < dst.shape[2]:
+        dst[:, :h, w:] = dst[:, :h, w - 1:w]
+    if h < dst.shape[1]:
+        dst[:, h:] = dst[:, h - 1:h]
