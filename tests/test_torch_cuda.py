@@ -8,7 +8,9 @@ csrc/probe_relayout.cu); then the paths that reach K1 from outside the
 CLI: two processes sharing the card over a gloo group, the global mesh,
 and the designer's regrain (and, with matplotlib, its GUI) against the CPU;
 and ``run_file`` on the card (traced, reusing its buffers, at pad-leak
-widths, pipe to pipe through the native rings) against the CPU.
+widths, pipe to pipe through the native rings) against the CPU, and
+``run_device`` at 4K against ``run_file``, with no frame crossing the
+host.
 
 Marked ``cuda``: each test asks the ``cuda_device`` fixture for a card and
 skips without one (the kernel has no CPU mode; the CPU tests hold the plain
@@ -964,3 +966,55 @@ def test_run_file_pipe_to_pipe_through_pinned_rings_on_card(
     GrainPipeline(w, h, depth, 0, device="cpu", engine="ref").run_file(
         str(inp), want, odepth=odepth, batch=8)
     assert got == [open(want, "rb").read()]
+
+
+@pytest.mark.parametrize("switch", [False, True], ids=["sei", "afgs1_switch"])
+def test_run_device_at_4k_on_card(switch, cuda_device, tmp_path):
+    """``run_device`` at 3840x2160 10-bit over 24 frames on the card, at
+    batch 8, with the built-in FGC SEI and across one AFGS1 switch (POC
+    11, which cuts a batch): byte-equal to ``run_file`` on the card, and
+    no host copy of a frame's size (``Memcpy HtoD``/``DtoH``) in the
+    profiler's trace of the call."""
+    import json
+    import os
+    from torch.profiler import ProfilerActivity, profile
+    from versatilefilmgrain_tpu_torch import GrainPipeline
+    from versatilefilmgrain_tpu_torch.utils import device_io, tracing, yuv
+    from torch_port_cases import CFG_DIR
+    w, h, nfr, batch = 3840, 2160, 24, 8
+    fb = yuv.frame_bytes(w, h, 10, 0)
+    data = np.random.default_rng(26).integers(
+        0, 1 << 10, nfr * fb // 2).astype(np.uint16).view(np.uint8)
+    inp, want = tmp_path / "in.yuv", tmp_path / "file.yuv"
+    inp.write_bytes(data.tobytes())
+    configs = ([f"11:{os.path.join(CFG_DIR, 'fgs_afgs1_test2.cfg')}"]
+               if switch else [])
+    assert GrainPipeline(w, h, 10, 0, configs=configs).run_file(
+        str(inp), str(want), batch=batch) == nfr
+    lent = torch.from_numpy(data).to(cuda_device).view(nfr, fb)
+    got = torch.empty_like(lent)
+    handed = []
+
+    def hand(frame):
+        got[len(handed)].copy_(frame)
+        handed.append(frame)
+    pipe = GrainPipeline(w, h, 10, 0, configs=configs)
+    sink = device_io.DeviceSink(fb, 3 * batch, cuda_device, hand)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        n = pipe.run_device(device_io.DeviceSource(list(lent)), sink,
+                            batch=batch)
+        torch.cuda.synchronize()
+        c = tracing.counters()
+    assert n == len(handed) == nfr
+    assert c["device_frames"] == nfr and c.get("ring_frames", 0) == 0
+    assert c.get("switch_cuts", 0) == int(switch)
+    assert got.cpu().numpy().tobytes() == want.read_bytes()
+    trace = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    crossing = [e for e in events if e.get("cat") == "gpu_memcpy"
+                and ("HtoD" in e["name"] or "DtoH" in e["name"])]
+    assert all(e.get("args", {}).get("bytes", fb) < fb // 16
+               for e in crossing), crossing[:4]

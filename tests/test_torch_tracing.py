@@ -4,7 +4,9 @@
 the profiler's clock; the ``-v`` line is summed from the spans; a
 profiler session after an off stretch starts a fresh record; output bytes
 do not depend on it; and the benchmark's readers of it read it, those of
-the config switch path per pop, per build and per batch."""
+the config switch path per pop, per build and per batch, those of
+``run_device`` (the device ends and the lattice prep) per frame, and K1's
+roofline share from a synthetic trace."""
 
 import json
 import os
@@ -13,6 +15,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from portbench.run import load_file
@@ -398,3 +401,81 @@ def test_switch_readers_without_switches_or_their_counter(tmp_path,
     monkeypatch.setattr(tracing, "COUNTERS", tuple(
         c for c in tracing.COUNTERS if c != "switch_cuts"))
     assert _reader("cut_batch_pct.scenes").read(rec) is None
+
+
+# The readers of the device-resident loop (run_device): the spans of the
+# device ends, or of the lattice prep, over the frames.
+DEVICE_READERS = {
+    "ends_ms.gpu": ("read", "stage", "upload", "download", "wait", "put"),
+    "prep_host_ms.gpu": ("grain.prep",)}
+
+
+def _run_device_profiled(tmp_path):
+    from versatilefilmgrain_tpu_torch.utils import device_io, yuv
+    data = open(_source(tmp_path), "rb").read()
+    fb = yuv.frame_bytes(W, H, 10, 0)
+    lent = [torch.frombuffer(bytearray(data[i * fb:(i + 1) * fb]),
+                             dtype=torch.uint8) for i in range(NFR)]
+    sink = device_io.DeviceSink(fb, 3 * BATCH, "cpu", lambda frame: None)
+    pipe = GrainPipeline(W, H, 10, 0, device="cpu")
+    _profiled(lambda: pipe.run_device(device_io.DeviceSource(lent), sink,
+                                      batch=BATCH, verbose=True))
+
+
+@pytest.mark.parametrize("metric", sorted(DEVICE_READERS))
+def test_device_readers_read_the_recorder(metric, tmp_path):
+    reader = _reader(metric)
+    rec = dict(frames=NFR, device_frames=NFR)
+    assert reader.read(rec) is None                    # nothing recorded
+    _run_device_profiled(tmp_path)
+    tot, got = _totals()
+    assert got["counters"]["device_frames"] == NFR
+    want = 1e3 * sum(tot[name][1] for name in DEVICE_READERS[metric]) / NFR
+    assert reader.read(rec) == pytest.approx(want)
+    assert reader.read(dict(frames=NFR + 1,            # another run's
+                            device_frames=NFR + 1)) is None
+    if metric == "ends_ms.gpu":
+        # the record's counter decides, not the recorder's
+        assert reader.read(dict(frames=NFR)) is None
+    with open(os.path.join(REPO, "BENCHMARK.json")) as f:
+        entry = {m["name"]: m for m in json.load(f)["per_layer"]}[metric]
+    assert entry["source"] == "program_span" and entry["unit"] == "ms"
+    assert entry["workloads"] == ["uhd10_sei.gpu_b8"]
+    assert entry["moves"] == "fps_pipe"
+
+
+def test_ends_reader_reads_nothing_of_frames_from_the_host(tmp_path):
+    """After ``run_file`` no frame came in on the device: ``ends_ms.gpu``
+    reads nothing, ``prep_host_ms.gpu`` reads the prep."""
+    src = _source(tmp_path)
+    pipe = GrainPipeline(W, H, 10, 0, device="cpu")
+    _profiled(lambda: pipe.run_file(src, str(tmp_path / "out.yuv"),
+                                    batch=BATCH, verbose=True))
+    rec = dict(frames=NFR, device_frames=_totals()[1]["counters"].get(
+        "device_frames"))
+    assert _reader("ends_ms.gpu").read(rec) is None
+    assert _reader("prep_host_ms.gpu").read(rec) > 0
+
+
+def test_k1_roofline_reads_a_synthetic_trace():
+    """K1's least bytes over its device time: 8 steps of 8 4K 10-bit
+    frames (the last one cut to 5), each read and written once, the
+    tables once a step, at 3.35 TB/s, over the ``grain_plane`` kernels'
+    time alone."""
+    from portbench import roofline
+    reader = _reader("k1_roofline.gpu")
+    geo = (3840, 2160, 10, 0)
+    k1_s = 8 * 3 * 0.0006
+    rec = dict(steps=8, frames=61, geometry=geo, batch=8, trace=dict(
+        busy_s=0.1, window_s=1.0, ops={
+            "void_vfg::grain_plane_kernel": [24, k1_s],
+            "Memcpy DtoD": [160, 0.03],
+            "void_at::native::elementwise_kernel": [900, 0.02]}))
+    plane_bytes = 2 * (3840 * 2160 + 2 * 1920 * 1080)
+    least = 2 * plane_bytes * 61 + 8 * roofline.TABLE_BYTES
+    assert reader.read(rec) == pytest.approx(100 * least / 3.35e12 / k1_s)
+    assert 0 < reader.read(rec) < 100
+    for drop in ("trace", "steps", "frames"):
+        assert reader.read({**rec, drop: None}) is None
+    no_k1 = {**rec, "trace": dict(rec["trace"], ops={"Memcpy DtoD": [1, 1.0]})}
+    assert reader.read(no_k1) is None

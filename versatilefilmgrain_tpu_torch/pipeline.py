@@ -1,9 +1,10 @@
 """Outer layer: validation, chroma-format adjustment, gain, POC-scheduled
 multi-config switching, and the frame loop (reference: src/vfgs_main.c).
 
-One frame loop, ``GrainPipeline._loop``, serves ``run`` (open files) and
-``run_file`` (file paths, batches); ``process_frame`` grains an in-memory
-frame with the loop's staging and its padding carry at pad-leak widths.
+One frame loop, ``GrainPipeline._loop``, serves ``run`` (open files),
+``run_file`` (file paths, batches) and ``run_device`` (frames on the
+device, batches); ``process_frame`` grains an in-memory frame with the
+loop's staging and its padding carry at pad-leak widths.
 
 The per-frame LFSR bases are derived in closed form from (frame - epoch) where
 ``epoch`` is the frame index of the last reseed (AFGS1 inits reseed,
@@ -417,38 +418,68 @@ class GrainPipeline:
                 for s in shapes]
 
     def _pad(self, planes, padded) -> list:
-        """Write the device planes ``planes`` ((count, h, w) each) into the
-        first ``count`` frames of the padded device planes ``padded`` and
-        fill what lies outside each frame: its edge
-        (:func:`yuv.pad_batch`), or at a pad-leak width (one frame a step)
-        the carry: the last step's output, zeros before the first frame,
-        as the reference's persistent frame buffer holds them.  Returns
-        the filled planes."""
+        """Write the device planes ``planes`` into the first frames of the
+        padded device planes ``padded`` and fill what lies outside each
+        frame: its edge (:func:`yuv.pad_batch`), or at a pad-leak width
+        (one frame a step) the carry: the last step's output, zeros before
+        the first frame, as the reference's persistent frame buffer holds
+        them.  Each entry of ``planes`` is a (count, h, w) tensor (a batch
+        of host frames in the raw bytes) or a list of ``count`` (h, w)
+        tensors, one a device frame.  Returns the filled planes."""
         leak = self._has_pad_leak()
         if leak and self._carry is None:
             self._carry = [torch.zeros(d.shape[1:], dtype=d.dtype,
                                        device=self.device) for d in padded]
         out = []
         for k, (p, d) in enumerate(zip(planes, padded)):
-            count, h, w = p.shape
-            d = d[:count]
-            if not leak:
-                yuv.pad_batch(d, p)
-            else:
-                d[:, :h, :w] = p
-                d[:, h:] = self._carry[k][h:]
-                d[:, :h, w:] = self._carry[k][:h, w:]
+            d = d[:len(p)]
+            parts = [(d, p)] if torch.is_tensor(p) else [
+                (d[i:i + 1], q[None]) for i, q in enumerate(p)]
+            for dst, src in parts:
+                h, w = src.shape[1:]
+                if not leak:
+                    yuv.pad_batch(dst, src)
+                else:
+                    dst[:, :h, :w] = src
+                    dst[:, h:] = self._carry[k][h:]
+                    dst[:, :h, w:] = self._carry[k][:h, w:]
             out.append(d)
         return out
 
     def _upload(self, frames, raw, padded) -> list:
-        """Start the copy of the host frames ``frames`` (raw frame bytes)
-        into the first rows of the device bytes ``raw``, then pad them on
-        the device into ``padded`` (:meth:`_pad`).  Returns the planes."""
+        """Start the copy of the frames ``frames``, as a source lends them,
+        to the device and pad them there into ``padded`` (:meth:`_pad`).
+        Host frames (raw frame bytes) are copied into the first rows of
+        the device bytes ``raw`` first; frames on the pipeline's device
+        (:meth:`_device_planes`) are padded from their own plane views, so
+        no copy of them is made beside (``raw`` may be None).  Returns the
+        planes."""
+        if torch.is_tensor(frames[0]):
+            tracing.count("device_frames", len(frames))
+            return self._pad(self._device_planes(frames), padded)
         for row, frame in zip(raw, frames):
             row.copy_(torch.from_numpy(frame), non_blocking=True)
         return self._pad([p[:len(frames)] for p in self._planes(raw)],
                          padded)
+
+    def _device_planes(self, frames, depth: int = 0) -> list:
+        """The (Y, U, V) plane views of device frames ``frames``, each a
+        1-D uint8 tensor on the pipeline's device holding a frame of
+        ``depth`` bits (the input's unless given) as the files lay it
+        out: three lists of (h, w) views, one a frame, so that a frame
+        may be any allocation of its own (a decoder's surface)."""
+        nbytes = self._frame_bytes(depth)
+        for f in frames:
+            if (f.dtype != torch.uint8 or f.dim() != 1
+                    or f.numel() != nbytes
+                    or f.device.type != self.device.type
+                    or self.device.index not in (None, f.device.index)):
+                raise ValueError(
+                    f"a device frame is a 1-D uint8 tensor of {nbytes} "
+                    f"bytes on {self.device}, got {tuple(f.shape)} "
+                    f"{f.dtype} on {f.device}")
+        per = [self._planes(f[None], depth) for f in frames]
+        return [[p[k][0] for p in per] for k in range(3)]
 
     def _grain(self, dev, bases, bases_up, tables):
         """One step; at a pad-leak width its output becomes the carry."""
@@ -554,13 +585,31 @@ class GrainPipeline:
         return self._loop(open_ends, frames, odepth, batch, profile_dir,
                           verbose)
 
+    def run_device(self, src, dst, frames: int = 0, odepth: int = 0,
+                   batch: int = 4, profile_dir: str | None = None,
+                   verbose: bool = False) -> int:
+        """The frame loop (:meth:`_loop`) over frames on the pipeline's
+        device, ``batch`` a step: ``src`` lends them and ``dst`` takes the
+        grained frames, as ``utils/device_io.py`` sets out (its
+        ``DeviceSource`` and ``DeviceSink``, or a decoder's and an
+        encoder's adapters).  Every copy stays on the device: frames are
+        padded from the source's frames and cropped (10 -> 8 bits with
+        ``odepth`` 8) into the sink's.  The first frame ``src`` lends is
+        POC ``seek``, as the first frame ``run_file`` reads after the
+        skipped ones; ``frames``, ``profile_dir`` and ``verbose`` as in
+        :meth:`run_file`, whose bytes it gives.  The caller's ends stay
+        open.  Returns frames written."""
+        return self._loop(lambda opened: (src, dst), frames, odepth, batch,
+                          profile_dir, verbose)
+
     def _loop(self, open_ends, frames: int, odepth: int, batch: int,
               profile_dir: str | None = None, verbose: bool = False) -> int:
-        """The frame loop of :meth:`run` and :meth:`run_file`: raw frames
-        from a source, grained ``batch`` at a step (one at a pad-leak
-        width), to a sink with ``odepth`` bits; ``frames`` of them, or all
-        if 0.  ``open_ends(opened)`` makes the source and the sink, closed
-        by the ExitStack ``opened`` as the loop ends.  Batches never
+        """The frame loop of :meth:`run`, :meth:`run_file` and
+        :meth:`run_device`: raw frames from a source, grained ``batch`` at
+        a step (one at a pad-leak width), to a sink with ``odepth`` bits;
+        ``frames`` of them, or all if 0.  ``open_ends(opened)`` makes the
+        source and the sink; the ExitStack ``opened`` closes what it
+        enters as the loop ends.  Batches never
         straddle a config-switch POC.  The root span is ``run_file``
         whoever calls.  Returns frames written."""
         odepth = odepth or self.depth
@@ -602,17 +651,28 @@ class GrainPipeline:
         batch N's device-to-host copy is waited for only when it is put,
         one batch later.  The device buffers are made once a call and
         serve every batch (the copies and steps that use them queue in
-        order on one stream): raw input frame bytes, padded planes, and
-        output frame bytes laid out as the output file."""
+        order on one stream): padded planes, and for host frames, made at
+        the first one, the raw input frame bytes and the output frame
+        bytes laid out as the output file.  Frames lent on the device
+        (:meth:`run_device`) need neither: they are padded from their
+        own plane views and cropped straight into the sink's frames."""
         cuda = self.device.type == "cuda"
         slots = min(batch, frames) if frames else batch
-        raw = torch.empty((slots, self._frame_bytes()), dtype=torch.uint8,
-                          device=self.device)
         padded = self._padded_batch(slots)
-        cropped = torch.empty((slots, self._frame_bytes(odepth)),
-                              dtype=torch.uint8, device=self.device)
-        tracing.count("staging_allocs", 5)
-        out_planes = self._planes(cropped, odepth)
+        tracing.count("staging_allocs", 3)
+        made = {}
+
+        def host_bytes(depth):
+            """The device bytes of a batch of host frames of ``depth`` bits
+            coming in (0: the input's) or going out (``odepth``), and
+            their (Y, U, V) views, made at the first host frame."""
+            key = "out" if depth else "in"
+            if key not in made:
+                rows = torch.empty((slots, self._frame_bytes(depth)),
+                                   dtype=torch.uint8, device=self.device)
+                made[key] = rows, self._planes(rows, depth)
+                tracing.count("staging_allocs")
+            return made[key]
         # the H2D copies from and the D2H copies to the ring frames of the
         # batches that last used each of two slots, and how many input
         # frames those batches hold
@@ -664,7 +724,8 @@ class GrainPipeline:
             bases, bases_up = zip(*(self.frame_bases(n0 + i)
                                     for i in range(count)))
             with tracing.span("upload"):
-                dev = self._upload(taken, raw, padded)
+                dev = self._upload(taken, None if torch.is_tensor(taken[0])
+                                   else host_bytes(0)[0], padded)
                 if cuda:
                     uploaded[slot].record()
             # resolve the tables NOW: a later prepare() may pop the next
@@ -672,21 +733,35 @@ class GrainPipeline:
             return dev, bases, bases_up, self._tables(), count
 
         def start_download(out, count, slot):
-            """Crop a batch's output planes on the device into ``cropped``,
-            frame by frame as the output file holds them (10-bit planes
-            written as 8 bits are rounded first, (x + 2) >> 2,
-            yuv.c:216-258), and enqueue each frame's copy into a frame of
-            the sink's ring, waiting while its thread has none free.
-            Returns those frames."""
+            """Crop a batch's output planes on the device, frame by frame
+            as the output file holds them (10-bit planes written as 8 bits
+            are rounded first, (x + 2) >> 2, yuv.c:216-258), into the
+            frames the sink lends, waiting while its thread has none free:
+            into device frames straight, or into the output frame bytes,
+            each frame then copied into a host frame.  A device frame
+            takes a copy a plane (:meth:`_device_planes`), the output
+            bytes one a plane a batch.  Returns the sink's frames."""
             with tracing.span("download"):
                 taken = [dst.acquire() for _ in range(count)]
-                for o, rows in zip(out, out_planes):
-                    q = o[:, :rows.shape[1], :rows.shape[2]]
+                on_device = torch.is_tensor(taken[0])
+                if on_device:
+                    dests = self._device_planes(taken, odepth)
+                else:
+                    rows, planes = host_bytes(odepth)
+                    dests = [p[:count] for p in planes]
+                for o, d in zip(out, dests):
+                    h, w = d[0].shape
+                    q = o[:, :h, :w]
                     if odepth < self.depth:
                         q = ((q.to(torch.int32) + 2) >> 2).to(torch.uint8)
-                    rows[:count].copy_(q)
-                for row, frame in zip(cropped, taken):
-                    torch.from_numpy(frame).copy_(row, non_blocking=True)
+                    if on_device:
+                        for frame_plane, plane in zip(d, q):
+                            frame_plane.copy_(plane)
+                    else:
+                        d.copy_(q)
+                if not on_device:
+                    for row, frame in zip(rows, taken):
+                        torch.from_numpy(frame).copy_(row, non_blocking=True)
                 if cuda:
                     downloaded[slot].record()
             return taken

@@ -30,12 +30,14 @@ NULL = contextlib.nullcontext()
 # The counters: frames and batches through the frame loop, the batches it
 # cut short at a config switch, config pops that succeeded, device tables
 # built, LFSR jump tables built (one per bit of the exponent,
-# ops/lfsr.py), the loop's staging buffers (its two host rings and its
-# device buffers, made once a call whatever the number of frames), and the
-# frames that left through the native writer's ring by reference, having
-# come in through the native reader's.
+# ops/lfsr.py), the frames that came in on the device (``run_device``),
+# the loop's staging buffers (its two host rings and its device buffers,
+# made once a call whatever the number of frames), and the frames that
+# left through the native writer's ring by reference, having come in
+# through the native reader's.
 COUNTERS = ("frames", "batches", "switch_cuts", "config_pops",
-            "table_uploads", "lfsr_tables", "staging_allocs", "ring_frames")
+            "table_uploads", "lfsr_tables", "device_frames",
+            "staging_allocs", "ring_frames")
 
 
 class _Thread(threading.local):
